@@ -1,14 +1,26 @@
-// Early-stop layered scaled min-sum LDPC decoder for NVIDIA Hopper (sm_90a).
+// Layered scaled min-sum LDPC decoder for NVIDIA Hopper (sm_90a), in two
+// modes of one kernel: early stop (per-codeblock CRC after each sweep) and
+// fixed iterations.
 //
-// Replaces the Pallas TPU kernels
+// Early-stop mode replaces the Pallas TPU kernels
 //   srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py: ldpc_decode_pallas_es_bm
-//     (kernel _make_kernel_delta_es_bm), for z % 128 == 0, and
+//     (kernel _make_kernel_delta_es_bm), for z % 128 == 0,
 //   srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py: _ldpc_decode_pallas_es_packed
-//     (kernel _make_kernel_packed_es_bm), its packed-lane form for the other 48 z.
-// Both compute one function; the packing existed only because TPU lane
-// rotations are correct on whole 128-lane registers.  Here a cyclic shift is
-// an index offset (i + s) mod z into shared memory, so one kernel serves every
-// BG1/BG2 lifting size 2 <= z <= 384.
+//     (kernel _make_kernel_packed_es_bm), its packed-lane form for the other 48 z,
+//   srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py: ldpc_decode_pallas_es
+//     (kernel _make_kernel_delta_es), the same function on a transposed
+//     (nv-2, B, z) layout.
+// Fixed-iteration mode replaces
+//   srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py: ldpc_decode_pallas (v1,
+//     _make_kernel, roll-in/roll-back) and ldpc_decode_pallas_v3
+//     (_make_kernel_delta, delta-roll),
+//   srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas_v2.py: ldpc_decode_pallas_v2
+//     (layer fori_loop over scalar-prefetched tables).
+// All six compute one function per mode; their variety came from TPU lane
+// rotations that are correct only on whole 128-lane registers, the cost of
+// int8 transposes and compile time.  Here a cyclic shift is an index offset
+// (i + s) mod z into shared memory, so one kernel serves every BG1/BG2
+// lifting size 2 <= z <= 384.
 //
 // Arithmetic, bit-exact with ops/ldpc/decode.py (the plain torch version) and
 // with the JAX package:
@@ -28,8 +40,10 @@
 //   c2v state   u32   [m][z]    sign bits (0..18) | argmin (19..23) | scaled min1 (24..30),
 //               u8    [m][z]    scaled min2;
 // the sign product is the parity of the sign bits.  The state lives in the
-// check domain and never rotates.  BG1 at z = 384 needs 114,432 bytes, so two
-// CTAs fit on one SM.
+// check domain and never rotates.  BG1 at z = 384 needs 114,432 bytes in
+// both modes, so two CTAs fit on one SM.  Codeblocks are independent CTAs,
+// so the batch needs no padding rows (the JAX wrappers pad to their tile
+// with +127 rows in early-stop mode and 0 rows in fixed mode).
 //
 // Early stop: after each full sweep every thread XORs the packed zero-basis
 // CRC row of each of its systematic bits with hard decision soft <= 0 (the
@@ -40,6 +54,10 @@
 // the tile's last convergence and snapshot each codeblock when it first
 // passes; stopping a codeblock at that sweep gives the same soft bits, so one
 // CTA per codeblock is bit-exact with those tile-wide snapshot semantics.
+//
+// Fixed iterations: no CRC work; exactly max_iterations sweeps, then the
+// outputs.  A codeblock that converges early keeps sweeping, and its soft
+// values keep growing, so the two modes differ exactly on such codeblocks.
 //
 // What bounds it on the card: the rows run in sequence with a block barrier
 // between them (46 per BG1 sweep) and each edge costs a few dependent integer
@@ -85,7 +103,10 @@ __device__ __forceinline__ int soft_index(int edge, int lane, int z) {
   return (edge & 0xFFFF) * z + j;
 }
 
-__global__ void ldpc_decode_es_kernel(
+// kEarlyStop selects the mode; crc_mask, crc_ok and iterations are read and
+// written only in early-stop mode (null in fixed mode).
+template <bool kEarlyStop>
+__global__ void ldpc_decode_kernel(
     const int8_t* __restrict__ llr, const int* __restrict__ row_ptr,
     const int* __restrict__ edges, const int* __restrict__ crc_mask,
     uint8_t* __restrict__ hard, int8_t* __restrict__ soft_out,
@@ -158,25 +179,27 @@ __global__ void ldpc_decode_es_kernel(
       __syncthreads();
     }
 
-    int acc = 0;
-    if (active) {
-      for (int c = 0; c < kb; ++c) {
-        if (soft[c * z + lane] <= 0) acc ^= crc_mask[c * z + lane];
+    if constexpr (kEarlyStop) {
+      int acc = 0;
+      if (active) {
+        for (int c = 0; c < kb; ++c) {
+          if (soft[c * z + lane] <= 0) acc ^= crc_mask[c * z + lane];
+        }
       }
-    }
-    for (int off = 16; off > 0; off >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
-    if ((lane & 31) == 0) warp_acc[lane >> 5] = acc;
-    __syncthreads();
-    if (lane == 0) {
-      int t = 0;
-      for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t ^= warp_acc[w];
-      block_ok = t == 0;
-    }
-    __syncthreads();
-    if (block_ok) {
-      ok = 1;
-      used = it + 1;
-      break;
+      for (int off = 16; off > 0; off >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
+      if ((lane & 31) == 0) warp_acc[lane >> 5] = acc;
+      __syncthreads();
+      if (lane == 0) {
+        int t = 0;
+        for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t ^= warp_acc[w];
+        block_ok = t == 0;
+      }
+      __syncthreads();
+      if (block_ok) {
+        ok = 1;
+        used = it + 1;
+        break;
+      }
     }
   }
 
@@ -186,37 +209,56 @@ __global__ void ldpc_decode_es_kernel(
     soft_out[base + k] = static_cast<int8_t>(v);
     hard[base + k] = v <= 0;
   }
-  if (lane == 0) {
-    crc_ok[cb] = static_cast<uint8_t>(ok);
-    iterations[cb] = used;
+  if constexpr (kEarlyStop) {
+    if (lane == 0) {
+      crc_ok[cb] = static_cast<uint8_t>(ok);
+      iterations[cb] = used;
+    }
   }
 }
 
-}  // namespace
-
 // Shared memory bytes one codeblock needs: 4 + 1 bytes of c2v state per
 // (row, lane) and one soft byte per (column, lane).
-extern "C" size_t ldpc_decode_es_smem_bytes(int z, int nv, int m) {
-  return static_cast<size_t>(z) * (5 * m + nv);
-}
+size_t smem_bytes(int z, int nv, int m) { return static_cast<size_t>(z) * (5 * m + nv); }
 
-// Launches one CTA per codeblock on `stream`.  Returns the CUDA error code of
-// the attribute call or the launch (0 on success); never synchronises.
-extern "C" int ldpc_decode_es_launch(
-    const void* llr, const void* row_ptr, const void* edges, const void* crc_mask,
-    void* hard, void* soft_out, void* crc_ok, void* iterations,
-    int batch, int z, int nv, int m, int kb, int max_iterations, float sf, void* stream) {
-  const size_t smem = ldpc_decode_es_smem_bytes(z, nv, m);
-  cudaError_t err = cudaFuncSetAttribute(
-      ldpc_decode_es_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// One CTA per codeblock on `stream`.  Returns the CUDA error code of the
+// attribute call or the launch (0 on success); never synchronises.
+template <bool kEarlyStop>
+int launch(const void* llr, const void* row_ptr, const void* edges, const void* crc_mask,
+           void* hard, void* soft_out, void* crc_ok, void* iterations,
+           int batch, int z, int nv, int m, int kb, int max_iterations, float sf,
+           void* stream) {
+  const size_t smem = smem_bytes(z, nv, m);
+  cudaError_t err = cudaFuncSetAttribute(ldpc_decode_kernel<kEarlyStop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
   const int threads = ((z + 31) / 32) * 32;
-  ldpc_decode_es_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ldpc_decode_kernel<kEarlyStop><<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(llr), static_cast<const int*>(row_ptr),
       static_cast<const int*>(edges), static_cast<const int*>(crc_mask),
       static_cast<uint8_t*>(hard), static_cast<int8_t*>(soft_out),
       static_cast<uint8_t*>(crc_ok), static_cast<int*>(iterations),
       z, nv, m, kb, max_iterations, sf);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Early-stop mode: hard, soft, crc_ok and iterations per codeblock.
+extern "C" int ldpc_decode_es_launch(
+    const void* llr, const void* row_ptr, const void* edges, const void* crc_mask,
+    void* hard, void* soft_out, void* crc_ok, void* iterations,
+    int batch, int z, int nv, int m, int kb, int max_iterations, float sf, void* stream) {
+  return launch<true>(llr, row_ptr, edges, crc_mask, hard, soft_out, crc_ok, iterations,
+                      batch, z, nv, m, kb, max_iterations, sf, stream);
+}
+
+// Fixed-iteration mode: exactly nof_iterations sweeps, then hard and soft.
+extern "C" int ldpc_decode_launch(
+    const void* llr, const void* row_ptr, const void* edges, void* hard, void* soft_out,
+    int batch, int z, int nv, int m, int kb, int nof_iterations, float sf, void* stream) {
+  return launch<false>(llr, row_ptr, edges, nullptr, hard, soft_out, nullptr, nullptr,
+                       batch, z, nv, m, kb, nof_iterations, sf, stream);
 }

@@ -2,13 +2,13 @@
 
 One slot program: OFDM demodulation -> DM-RS channel estimation -> MMSE
 equalization with CFO derotation -> bit-major soft demapping ->
-descrambling -> rate recovery (+ HARQ combining) -> early-stop LDPC
-decoding (the CUDA kernel on the card) -> CB/TB CRC checks.  Codeblocks and
-slots batch on leading axes.
+descrambling -> rate recovery (+ HARQ combining) -> LDPC decoding, early
+stop or fixed iterations (the CUDA kernel on the card) -> CB/TB CRC checks.
+Codeblocks and slots batch on leading axes.
 
 Scope of this port: the SCH-only bit-major path (no UCI), DM-RS type 1
 without hopping, per-slot constant cell parameters, MMSE, 1-4 layers over
-1-4 rx ports, HARQ combining, early-stop decoding.  Other settings raise
+1-4 rx ports, HARQ combining, both decoder modes.  Other settings raise
 NotImplementedError naming the ROADMAP item that will carry them.
 reference: lib/phy/upper/channel_processors/pusch/pusch_processor_impl.cpp:115-298,
 pusch_decoder_impl.cpp:294-398.
@@ -29,13 +29,15 @@ from srsran_projectvtlmo_tpu.ran.modulation import bits_per_symbol
 
 from ..ops import ofdm as ofdm_mod
 from ..ops.channel_estimate import estimate_channel_hop
-from ..ops.crc import crc_check_device_cbs
+from ..ops.crc import crc_check_device, crc_check_device_cbs
 from ..ops.demodulation import soft_demap
 from ..ops.equalization import apply_weights_ports_first, mmse_weights
 from ..ops.evm import evm as evm_fn
 from ..ops.ldpc import rate_match as rm
-from ..ops.ldpc.decode_cuda import ldpc_decode_es
+from ..ops.ldpc.decode_cuda import ldpc_decode, ldpc_decode_es
+from ..ops.ldpc.segment import tb_crc_name
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
+from ..utils.tables import resolve_device
 from .sch_config import SchChainConfig
 
 
@@ -88,7 +90,6 @@ def _check_scope(cfg: PuschRxConfig) -> None:
         (cfg.dmrs_config_type != 1, "DM-RS type 2 (ROADMAP A6b)"),
         (cfg.dynamic_params, "dynamic_params (ROADMAP A6b)"),
         (cfg.equalizer != "mmse", f"equalizer {cfg.equalizer!r} (ROADMAP A6b)"),
-        (not cfg.ldpc_early_stop, "the fixed-iteration LDPC mode (ROADMAP B4)"),
     ]
     for cond, what in deferred:
         if cond:
@@ -103,7 +104,11 @@ def flatten_tb_bits(tb_bits_cb, tbs: int):
 
 
 def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
-    """Per equal-E group HARQ combining + early-stop LDPC decode + CB/TB CRC.
+    """Per equal-E group HARQ combining + LDPC decode + CB/TB CRC.
+
+    Early stop takes each CB's CRC verdict and sweep count from the decoder;
+    fixed iterations run `nof_ldpc_iterations` sweeps and check the CB CRC
+    on the hard bits afterwards (all-true when the CBs carry none).
 
     parts: per group (B, nof_cb_in_group, N) dematched soft bits; cb_ranges
     the groups' [a, b) codeblock ranges.
@@ -116,24 +121,34 @@ def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
     soft = torch.cat(parts, dim=1) if cfg.emit_harq_soft else None
 
     kp = seg.nof_payload_bits_per_cb
-    crc_cb = "CRC24B" if seg.cb_crc_bits else ("CRC24A" if seg.tb_crc_bits == 24 else "CRC16")
+    crc_cb = "CRC24B" if seg.cb_crc_bits else tb_crc_name(seg)
     hards, oks, its = [], [], []
     for part in parts:
         cg = part.shape[1]
-        h, _, ok, it = ldpc_decode_es(part.reshape(b * cg, -1).contiguous(), seg.base_graph,
-                                      seg.lifting_size, crc_cb, kp,
-                                      nof_iterations=cfg.nof_ldpc_iterations)
+        llr = part.reshape(b * cg, -1).contiguous()
+        if cfg.ldpc_early_stop:
+            h, _, ok, it = ldpc_decode_es(llr, seg.base_graph, seg.lifting_size, crc_cb, kp,
+                                          nof_iterations=cfg.nof_ldpc_iterations)
+            oks.append(ok.reshape(b, cg))
+            its.append(it.reshape(b, cg))
+        else:
+            h, _ = ldpc_decode(llr, seg.base_graph, seg.lifting_size,
+                               nof_iterations=cfg.nof_ldpc_iterations)
         hards.append(h.reshape(b, cg, -1))
-        oks.append(ok.reshape(b, cg))
-        its.append(it.reshape(b, cg))
     hard = torch.cat(hards, dim=1)
+    if cfg.ldpc_early_stop:
+        cb_ok, iters = torch.cat(oks, dim=1), torch.cat(its, dim=1)
+    else:
+        cb_ok = (crc_check_device(hard[:, :, :kp], "CRC24B") if seg.cb_crc_bits
+                 else torch.ones((b, seg.nof_cb), dtype=torch.bool, device=hard.device))
+        iters = torch.full((b, seg.nof_cb), cfg.nof_ldpc_iterations, dtype=torch.int32,
+                           device=hard.device)
     payload = hard[:, :, :kp - seg.cb_crc_bits]
-    tb_crc = "CRC24A" if seg.tb_crc_bits == 24 else "CRC16"
     return {
-        "tb_crc_ok": crc_check_device_cbs(payload, tb_crc, cfg.tbs + seg.tb_crc_bits),
-        "cb_crc_ok": torch.cat(oks, dim=1),
+        "tb_crc_ok": crc_check_device_cbs(payload, tb_crc_name(seg), cfg.tbs + seg.tb_crc_bits),
+        "cb_crc_ok": cb_ok,
         "tb_bits_cb": payload,
-        "ldpc_iterations": torch.cat(its, dim=1),
+        "ldpc_iterations": iters,
         "harq_soft": soft,
     }
 
@@ -146,9 +161,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cpu"):
     kept on `device`.
     """
     _check_scope(cfg)
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = resolve_device(device)
     seg = cfg.segmentation
     qm = bits_per_symbol(cfg.modulation)
     nlayers, nports = cfg.nof_layers, cfg.nof_rx_ports

@@ -169,3 +169,8 @@ def soft_demap(symbols_pair: torch.Tensor, noise_var: torch.Tensor, mod: Modulat
     nv = noise_var[..., None]
     llr = llr_quantize(torch.where(nv > 0, llr / torch.clamp(nv, min=1e-38), 0.0), limit)
     return llr.reshape(llr.shape[:-2] + (llr.shape[-2] * llr.shape[-1],))
+
+
+def hard_demap(llrs: torch.Tensor) -> torch.Tensor:
+    """LLR <= 0 -> bit 1 (uint8)."""
+    return (llrs <= 0).to(torch.uint8)

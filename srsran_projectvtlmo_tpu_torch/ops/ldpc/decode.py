@@ -14,7 +14,7 @@ ldpc_decoder_impl.cpp:116-135):
     soft  = promotion_sum(c2v', v2c)  (overflow promotes to +/-127)
 
 This is the CPU path and the reference the CUDA kernel
-(`decode_cuda.py`, `csrc/ldpc_decode_es.cu`) is held against.  Each layer
+(`decode_cuda.py`, `csrc/ldpc_decode.cu`) is held against.  Each layer
 is one gather, a few batched elementwise ops and one scatter over the
 row's real edges; the row loop runs in Python.
 """

@@ -20,3 +20,12 @@ def on_device(fn, *args, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _cached(fn, args, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(fn(*args), device=device)
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, a bare "cuda" pinned to the current card
+    so that it compares equal to the device of the tensors made there."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -170,7 +170,7 @@ def test_from_grid_rejects_wrong_shape_and_defers_other_settings():
         rx(torch.zeros((1, 3, 14, tcfg.nof_subc, 2)))
     for kw in (dict(nof_harq_ack_bits=2), dict(hop_symbol=7, second_hop_prb=4),
                dict(dmrs_config_type=2), dict(dynamic_params=True), dict(equalizer="zf"),
-               dict(ldpc_early_stop=False), dict(decode_sch=False)):
+               dict(decode_sch=False)):
         with pytest.raises(NotImplementedError):
             build_pusch_rx_slot(_configs(**kw)[1])
 
