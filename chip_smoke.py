@@ -17,6 +17,9 @@ non-zero:
 4. the fixed-iteration kernel against its plain version, bit for bit (hard,
    soft), on the same kind of input and sizes, where it must differ from the
    early-stop kernel on the rows that converge early and only there;
+4b. both modes against the plain decoders, bit for bit, at all 51 lifting
+   sizes of BG1 and BG2, 2 and 6 iterations, on 12 CRC-terminated codeblocks
+   per size (encoded by the port, filler at +127) from clean to hopeless;
 5. the early-stop slice at the north-star shape (273 PRB, QAM256
    R=948/1024, 4 rx ports, 2 layers, 6 LDPC iterations, batch 4): the
    fixture's JAX-written Tx layer grids mixed by a fixed 4x2 matrix, AWGN
@@ -30,7 +33,10 @@ non-zero:
    noise and OFDM modulation into `build_pusch_rx_slot` with
    ldpc_early_stop=False; every TB and CB passes, 0 TB bit errors, and the
    call launched the fixed-iteration kernel and never the early-stop one;
-8. device-bound timing with CUDA events, one JSON line per metric.
+8. device-bound timing with CUDA events, one JSON line per metric, each
+   kernel line with its bound (see `ldpc_bound`);
+9. a torch.profiler breakdown of the north-star slot at batch 32: device
+   kernel time per call and the LDPC kernel's share, 2 and 6 iterations.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -53,6 +59,18 @@ ES_REPLACES = ("srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py:845 (#1), :770
                ":937 (#3)")
 FIXED_REPLACES = ("srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py:1026 (#4), :1085 (#5); "
                   "srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas_v2.py:142 (#6)")
+#: The LDPC bound's convention: about ten integer operations per edge and
+#: check lane per sweep (layered min-sum: subtract, absolute value, three for
+#: min1/min2/argmin, one sign bit; then pick the magnitude, apply the sign,
+#: add, saturate), on 16-bit lanes: no value needs more than 10 bits
+#: (|v2c| <= 362), and Hopper's integer add/min/max (VIADD, VIMNMX,
+#: VIADDMNMX) work on two 16-bit halves of a register at the int32 issue
+#: rate, so the H100 SXM does 132 SMs x 64 lanes x 2 halves per clock x
+#: 1.98 GHz; bytes at 3.35 TB/s, each input read once and each output written
+#: once.
+LDPC_OPS_PER_EDGE_LANE = 10
+PACKED16_OPS_PER_S = 132 * 64 * 2 * 1.98e9
+HBM_BYTES_PER_S = 3.35e12
 #: Bound on |port Tx grid - JAX Tx grid|: the fixture stores the JAX grids as
 #: float16, whose half spacing is 2^-11 ~ 4.9e-4 for values in [1, 2).
 TX_GRID_TOL = 1e-3
@@ -166,6 +184,76 @@ def phase_fixed_vs_plain(fx, gen):
                 raise SystemExit("the fixed and early-stop kernels must differ on the rows "
                                  "that converge early, and only on those")
     return max_err
+
+
+def sweep_cases(gen, count: int = 12):
+    """All 51 lifting sizes of both base graphs: (bg, z, crc, kp, noisy LLRs
+    of `count` CRC-terminated random codeblocks encoded by the port, filler
+    at +127, from clean to hopeless, the last row uniform over all of int8)."""
+    from srsran_projectvtlmo_tpu_torch.ops.crc import crc_device
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.encode import ldpc_encode
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import BaseGraph, get_graph
+    from srsran_projectvtlmo_tpu_torch.ran.ldpc_params import ALL_LIFTING_SIZES
+
+    for bg in (BaseGraph.BG1, BaseGraph.BG2):
+        for z in ALL_LIFTING_SIZES:
+            k = get_graph(bg, z).k
+            crc = "CRC24B" if k > 48 else "CRC16"
+            filler = min(k // 8, 64)
+            kp = k - filler
+            payload = torch.randint(0, 2, (count, kp - (24 if crc == "CRC24B" else 16)),
+                                    generator=gen, device="cuda", dtype=torch.uint8)
+            info = torch.cat([payload, crc_device(payload, crc),
+                              torch.zeros((count, filler), dtype=torch.uint8, device="cuda")], 1)
+            cw = ldpc_encode(info, bg, z)[:, 2 * z:]
+            llr = noisy_llrs(cw, count, filler, kp - 2 * z, gen)
+            llr[-1] = torch.randint(-128, 128, llr[-1].shape, generator=gen, device="cuda",
+                                    dtype=torch.int8)  # never converges; holds -128 too
+            yield bg, z, crc, kp, llr
+
+
+def phase_all_sizes(gen):
+    """Both kernel modes against the plain decoders at every lifting size."""
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode as plain
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.decode_cuda import (
+        ldpc_decode_cuda, ldpc_decode_es_cuda)
+
+    max_err, checked = 0, 0
+    for bg, z, crc, kp, llr in sweep_cases(gen):
+        conv = []
+        for iters in (2, 6):
+            es = ldpc_decode_es_cuda(llr, bg, z, crc, kp, nof_iterations=iters)
+            fixed = ldpc_decode_cuda(llr, bg, z, nof_iterations=iters)
+            torch.cuda.synchronize()
+            es_ref = plain.ldpc_decode_es(llr, bg, z, crc, kp, nof_iterations=iters)
+            fixed_ref = plain.ldpc_decode(llr, bg, z, nof_iterations=iters)
+            names = ("hard", "soft", "crc_ok", "iterations")
+            bad = [f"es {n}" for n, a, b in zip(names, es, es_ref) if not torch.equal(a, b)]
+            bad += [f"fixed {n}" for n, a, b in zip(("hard", "soft"), fixed, fixed_ref)
+                    if not torch.equal(a, b)]
+            for got, ref in ((es[1], es_ref[1]), (fixed[1], fixed_ref[1])):
+                max_err = max(max_err, int((got.int() - ref.int()).abs().max()))
+            if bad:
+                raise SystemExit(f"all-sizes sweep BG{int(bg)} z={z} it={iters}: kernel "
+                                 f"disagrees with the plain decoder: {bad}")
+            conv.append(f"it={iters} converged {int(es[2].sum())}/{llr.shape[0]}")
+            checked += 1
+        print(f"sweep BG{int(bg)} z={z} {crc} kp={kp}: {', '.join(conv)}; both modes bit-exact")
+    print(f"all-sizes sweep: {checked} (graph, iterations) cases x 2 modes bit-exact, "
+          f"max |soft diff| {max_err}")
+    return max_err
+
+
+def ldpc_bound(bg, z: int, cbs: int, sweeps: int, early_stop: bool):
+    """(bound ms, what bounds it) for decoding `cbs` codeblocks in `sweeps`
+    sweeps in all (counted from the run's own iterations)."""
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import get_graph
+
+    g = get_graph(bg, z)
+    ops = LDPC_OPS_PER_EDGE_LANE * int((g.shifts >= 0).sum()) * z * sweeps
+    nbytes = cbs * (g.n + 2 * g.k) + ((cbs * 5 + 4 * g.k) if early_stop else 0)
+    t_ops, t_bytes = ops / PACKED16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def northstar_cfg(iterations: int, early_stop: bool = True):
@@ -340,6 +428,9 @@ def phase_timing(gen):
     cbs = 76 * 4
     llr = torch.randint(-120, 121, (cbs, g.n), generator=gen, device="cuda",
                         dtype=torch.int8)
+    es_sweeps = int(ldpc_decode_es_cuda(llr, BaseGraph.BG1, 384, "CRC24B", g.k,
+                                        nof_iterations=2)[3].sum())
+    es_bound = ldpc_bound(BaseGraph.BG1, 384, cbs, es_sweeps, True)
     es_ms = cuda_time_ms(lambda: ldpc_decode_es_cuda(llr, BaseGraph.BG1, 384, "CRC24B", g.k,
                                                      nof_iterations=2), reps=20)
     es_plain_ms = cuda_time_ms(lambda: plain.ldpc_decode_es(llr, BaseGraph.BG1, 384, "CRC24B",
@@ -348,7 +439,8 @@ def phase_timing(gen):
     metric_line("ldpc_decode_es_bg1_z384_2it", cbs * g.k / (es_ms / 1e3) / 1e6,
                 f"Mbps (CUDA events, {cbs} codeblocks of random LLRs, early-stop kernel, "
                 f"never converging)", kernel_ms=es_ms, plain_ms=es_plain_ms,
-                plain_mbps=cbs * g.k / (es_plain_ms / 1e3) / 1e6)
+                plain_mbps=cbs * g.k / (es_plain_ms / 1e3) / 1e6, bound_ms=es_bound[0],
+                share_of_bound=es_bound[0] / es_ms)
 
     # bench.py's definition: 608 encoded codeblocks, fixed iterations, hard bits checked.
     cbs = 608
@@ -359,6 +451,7 @@ def phase_timing(gen):
     torch.cuda.synchronize()
     if not torch.equal(hard, info):
         raise SystemExit("fixed-iteration kernel: hard bits != encoded info bits")
+    fx_bound = ldpc_bound(BaseGraph.BG1, 384, cbs, 2 * cbs, False)
     fx_ms = cuda_time_ms(lambda: ldpc_decode_cuda(llr, BaseGraph.BG1, 384, nof_iterations=2),
                          reps=20)
     fx_plain_ms = cuda_time_ms(lambda: plain.ldpc_decode(llr, BaseGraph.BG1, 384,
@@ -367,8 +460,54 @@ def phase_timing(gen):
                 f"Mbps (CUDA events, {cbs} codeblocks of random info encoded by the port, "
                 f"LLRs +/-8, fixed-iteration kernel, hard bits == info)",
                 kernel_ms=fx_ms, plain_ms=fx_plain_ms,
-                plain_mbps=cbs * g.k / (fx_plain_ms / 1e3) / 1e6)
-    return {"ldpc_decode_es": (es_ms, es_plain_ms), "ldpc_decode": (fx_ms, fx_plain_ms)}
+                plain_mbps=cbs * g.k / (fx_plain_ms / 1e3) / 1e6, bound_ms=fx_bound[0],
+                share_of_bound=fx_bound[0] / fx_ms)
+    return {"ldpc_decode_es": (es_ms, es_plain_ms, *es_bound),
+            "ldpc_decode": (fx_ms, fx_plain_ms, *fx_bound)}
+
+
+def phase_profile(gen):
+    """torch.profiler over 3 calls of the north-star slot at batch 32 (random
+    REs, full LDPC budget): device kernel time per call and the LDPC kernel's
+    part, annotation spans excluded.  A profiler that records no device
+    events prints "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import build_pusch_rx_slot
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+
+    calls = 3
+    for iters, early_stop in ((2, True), (6, True), (6, False)):
+        cfg = northstar_cfg(iters, early_stop)
+        rx = build_pusch_rx_slot(cfg, "cuda")
+        nsamp = ofdm.slot_sample_count(cfg.dft_size, cfg.numerology, 0)
+        x = torch.randn((32, 4, nsamp, 2), generator=gen, device="cuda") * 0.3
+        rx(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                rx(x)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / calls
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("pusch_rx.")]
+        total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls
+        ldpc = sum(e.time_range.elapsed_us() for e in kernels
+                   if "ldpc_decode_kernel" in e.name) / 1e3 / calls
+        mode = "early-stop" if early_stop else "fixed"
+        if not kernels:
+            print(f"profile batch 32, {iters} iterations, {mode}: not measured "
+                  f"(no device events)")
+            continue
+        print(json.dumps({"profile": f"pusch_rx_batch32_{iters}it_{mode}",
+                          "device_kernel_ms_per_call": total, "ldpc_kernel_ms_per_call": ldpc,
+                          "ldpc_share": ldpc / total,
+                          "kernels_per_call": len(kernels) / calls,
+                          "host_ms_per_call_under_profiler": host_ms,
+                          "device": torch.cuda.get_device_name(0)}))
+        del x
 
 
 def main() -> int:
@@ -397,16 +536,20 @@ def main() -> int:
     es_err = phase_kernel_vs_plain(fx, gen)
     es_launches = phase_slice(fx, gen)
     fx_err = phase_fixed_vs_plain(fx, gen)
+    sweep_err = phase_all_sizes(gen)
     layers = phase_tx(fx)
     fx_launches = phase_fixed_slice(layers, fx, gen)
     times = phase_timing(gen)
+    phase_profile(gen)
 
-    rows = [("ldpc_decode_es", ES_REPLACES, es_launches, es_err),
-            ("ldpc_decode", FIXED_REPLACES, fx_launches, fx_err)]
+    rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
+            ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[name][0],
-        "plain_ms": times[name][1]} for name, replaces, launches, err in rows]}))
+        "plain_ms": times[name][1], "bound_ms": times[name][2], "bound_by": times[name][3],
+        "library_ms": None, "share_of_bound": times[name][2] / times[name][0]}
+        for name, replaces, launches, err in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,15 +10,18 @@ parity tests are plain array comparisons:
   * bits as uint8.
 
 Layout (mirrors the JAX package):
+  ran/           LDPC parameters, modulation schemes, SCH segmentation (host)
   utils/         int8 LLR semantics, complex pairs
-  ops/           CRC, OFDM, estimation, equalization, demapping, EVM
-  ops/ldpc/      graphs, rate recovery, the plain decoder and its CUDA kernel
-  models/        SCH configuration and the PUSCH receive slot
+  ops/           CRC, PRG, DM-RS, OFDM, estimation, equalization, demapping, EVM
+  ops/ldpc/      graphs, rate matching, the encoder, the plain decoder and its
+                 CUDA kernel
+  models/        SCH configuration, the UL-SCH transmitter, the PUSCH receive slot
   csrc/          CUDA C++ sources, built with nvcc at first use
+  data/          base graphs and the north-star test fixture
 
-This package imports torch and never jax.  It reuses the JAX package's
-jax-free host modules (`ran/*`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`)
-and reads its data files by path.
+This package imports torch and never jax, and nothing of the JAX package:
+it keeps its own copies of the host modules it needs (`ran/*`, `ops/prg`,
+`ops/dmrs`, `ops/ulsch_demux`) and of the base-graph data.
 """
 
 __version__ = "0.1.0"

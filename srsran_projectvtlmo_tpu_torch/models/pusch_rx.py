@@ -23,19 +23,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from srsran_projectvtlmo_tpu.ops import prg as prg_mod
-from srsran_projectvtlmo_tpu.ops.dmrs import dmrs_type1_sequence
-from srsran_projectvtlmo_tpu.ran.modulation import bits_per_symbol
-
 from ..ops import ofdm as ofdm_mod
+from ..ops import prg as prg_mod
 from ..ops.channel_estimate import estimate_channel_hop
 from ..ops.crc import crc_check_device, crc_check_device_cbs
 from ..ops.demodulation import soft_demap
+from ..ops.dmrs import dmrs_type1_sequence
 from ..ops.equalization import apply_weights_ports_first, mmse_weights
 from ..ops.evm import evm as evm_fn
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc.decode_cuda import ldpc_decode, ldpc_decode_es
 from ..ops.ldpc.segment import tb_crc_name
+from ..ran.modulation import bits_per_symbol
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
 from ..utils.tables import resolve_device
 from .sch_config import SchChainConfig
@@ -153,12 +152,12 @@ def _decode_sch_groups(cfg: PuschRxConfig, parts, cb_ranges, harq_buffer):
     }
 
 
-def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cpu"):
+def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
     """fn(grid (B, P, nsym, nsubc_alloc, 2), harq_buffer=None) -> result dict.
 
     The grid covers exactly the PUSCH allocation.  Config-derived tables
     (DM-RS references, descrambling signs, epochs) are built once here and
-    kept on `device`.
+    kept on `device`: the card unless the caller asks for the CPU.
     """
     _check_scope(cfg)
     dev = resolve_device(device)
@@ -291,13 +290,14 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cpu"):
     return rx
 
 
-def build_pusch_rx_slot(cfg: PuschRxConfig, device="cpu"):
+def build_pusch_rx_slot(cfg: PuschRxConfig, device="cuda"):
     """fn(samples (B, P, nsamples, 2) float32, harq_buffer=None) -> result dict.
 
     Result keys (as the JAX program): tb_crc_ok (B,), cb_crc_ok (B, C),
     tb_bits_cb (B, C, Kpay) uint8, ldpc_iterations (B, C) int32, harq_soft
     (B, C, N) int8, snr_db, evm, ta_s (B,), harq_ack_bits (B, 0),
-    harq_ack_metric (B,).
+    harq_ack_metric (B,).  Runs on the card unless `device` names the CPU,
+    where the LDPC decoder takes its plain torch version.
     """
     from_grid = build_pusch_rx_from_grid(cfg, device)
 

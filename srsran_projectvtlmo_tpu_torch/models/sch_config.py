@@ -11,8 +11,8 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
-from srsran_projectvtlmo_tpu.ran.modulation import Modulation, bits_per_symbol
-from srsran_projectvtlmo_tpu.ran.sch import (
+from ..ran.modulation import Modulation, bits_per_symbol
+from ..ran.sch import (
     SchSegmentation, sch_segmentation_info, tbs_calculator)
 
 

@@ -12,13 +12,12 @@ from __future__ import annotations
 
 import torch
 
-from srsran_projectvtlmo_tpu.ops import prg as prg_mod
-from srsran_projectvtlmo_tpu.ran.modulation import bits_per_symbol
-
+from ..ops import prg as prg_mod
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc.encode import ldpc_encode
 from ..ops.ldpc.segment import segment_tx
 from ..ops.modulation import modulate
+from ..ran.modulation import bits_per_symbol
 from ..utils.tables import on_device
 from .sch_config import SchChainConfig
 

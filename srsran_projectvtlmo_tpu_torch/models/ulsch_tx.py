@@ -17,15 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ops import prg as prg_mod
-from srsran_projectvtlmo_tpu.ops.dmrs import dmrs_type1_sequence
-from srsran_projectvtlmo_tpu.ops.ulsch_demux import (
-    build_ulsch_demux_plan, scramble_codeword_with_placeholders)
-from srsran_projectvtlmo_tpu.ran.modulation import bits_per_symbol
-
 from ..ops import ofdm as ofdm_mod
+from ..ops import prg as prg_mod
+from ..ops.dmrs import dmrs_type1_sequence
 from ..ops.modulation import modulate
 from ..ops.precoding import layer_map
+from ..ops.ulsch_demux import (
+    build_ulsch_demux_plan, scramble_codeword_with_placeholders)
+from ..ran.modulation import bits_per_symbol
 from ..utils.cplx import from_cplx
 from ..utils.tables import resolve_device
 from .pusch_rx import PuschRxConfig
@@ -46,10 +45,11 @@ def _check_scope(cfg: PuschRxConfig) -> None:
         raise ValueError("1-4 layers")
 
 
-def build_ulsch_tx_slot(cfg: PuschRxConfig, device="cpu"):
+def build_ulsch_tx_slot(cfg: PuschRxConfig, device="cuda"):
     """fn: tb_bits (B, TBS) uint8 on `device` ->
     (grid_pair (B[, L], 14, nsubc, 2), samples_pair (B[, L], nsamples, 2)),
-    float32; the layer axis is squeezed at 1 layer, as in the JAX program."""
+    float32; the layer axis is squeezed at 1 layer, as in the JAX program.
+    Runs on the card unless `device` names the CPU."""
     _check_scope(cfg)
     dev = resolve_device(device)
     qm = bits_per_symbol(cfg.modulation)

@@ -18,8 +18,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ran.modulation import Modulation, bits_per_symbol
-
+from ..ran.modulation import Modulation, bits_per_symbol
 from ..utils.llr import llr_quantize
 from .modulation import constellation
 

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from srsran_projectvtlmo_tpu.ran.modulation import Modulation
-
+from ..ran.modulation import Modulation
 from .demodulation import demap_axis_tables, demap_tables
 
 

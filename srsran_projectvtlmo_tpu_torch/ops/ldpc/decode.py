@@ -26,8 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ran.ldpc_params import BaseGraph
-
+from ...ran.ldpc_params import BaseGraph
 from ...utils.llr import LLR_INFTY, LLR_MAX
 from ...utils.tables import on_device
 from ..crc import POLYS, packed_zero_mask, xor_reduce

@@ -25,8 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ran.ldpc_params import BaseGraph
-
+from ...ran.ldpc_params import BaseGraph
 from ...utils.tables import on_device
 from .graphs import get_graph
 

@@ -1,9 +1,10 @@
 """LDPC lifted base graphs (TS 38.212 Section 5.3.2), host-side tables.
 
 A copy of `srsran_projectvtlmo_tpu.ops.ldpc.graphs` (whose package
-`__init__` imports jax), reading the same data file by path; the tests hold
-every field, the encode plan included, equal to the original for BG1/BG2 x
-all 51 lifting sizes.
+`__init__` imports jax), reading the port's own copy of the data file
+(`data/ldpc_base_graphs.npz`); the tests hold every field, the encode plan
+included, and the data file array by array, equal to the originals for
+BG1/BG2 x all 51 lifting sizes.
 
 Convention: check (r, i) reads variable block c at rotated index
 (i + shift[r, c]) mod Z.
@@ -18,12 +19,11 @@ from pathlib import Path
 
 import numpy as np
 
-from srsran_projectvtlmo_tpu.ran.ldpc_params import BaseGraph, lifting_index
+from ...ran.ldpc_params import BaseGraph, lifting_index
 
 NO_EDGE = 0xFFFF
 
-_DATA = (Path(__file__).resolve().parents[3] / "srsran_projectvtlmo_tpu" / "data"
-         / "ldpc_base_graphs.npz")
+_DATA = Path(__file__).resolve().parents[2] / "data" / "ldpc_base_graphs.npz"
 
 
 @functools.lru_cache(maxsize=1)

@@ -16,8 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ran.ldpc_params import BaseGraph
-
+from ...ran.ldpc_params import BaseGraph
 from ...utils.llr import LLR_INFTY, LLR_MAX, llr_promotion_sum
 from ...utils.tables import on_device
 

@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from srsran_projectvtlmo_tpu.ran.sch import SchSegmentation
-
+from ...ran.sch import SchSegmentation
 from ..crc import crc_check_device, crc_device
 
 

@@ -15,8 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from srsran_projectvtlmo_tpu.ran.modulation import Modulation, bits_per_symbol
-
+from ..ran.modulation import Modulation, bits_per_symbol
 from ..utils.tables import on_device
 
 #: Per-modulation amplitude normalization (TS 38.211 Section 5.1).

@@ -2,6 +2,8 @@
 configuration, CRC and the host tables they derive, each held against the
 JAX package on the same numpy inputs."""
 
+import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,18 +24,21 @@ from srsran_projectvtlmo_tpu_torch.models import sch_config
 from srsran_projectvtlmo_tpu_torch.ops import crc
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import graphs
 from srsran_projectvtlmo_tpu_torch.utils import cplx, llr
+from tests.test_torch_host_copies import port_kw
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 _MODULES = ("models.pusch_rx", "models.sch_config", "models.sch_tx", "models.ulsch_tx",
             "models.channel", "ops.ldpc.encode", "ops.ldpc.segment", "ops.ldpc.decode_cuda",
-            "ops.modulation", "ops.demodulation", "ops.precoding")
+            "ops.modulation", "ops.demodulation", "ops.precoding", "ops.prg", "ops.dmrs",
+            "ops.ulsch_demux", "ran.ldpc_params", "ran.modulation", "ran.sch")
+_FOREIGN = ("jax", "srsran_projectvtlmo_tpu")
 
 
 def test_import_leaves_jax_out():
     """Every module of the port (the listed ones among them) imports without
-    pulling in jax."""
+    pulling in jax or any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import srsran_projectvtlmo_tpu_torch as p\n"
@@ -41,13 +46,25 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         f"missing = [m for m in {_MODULES!r} if p.__name__ + '.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {_FOREIGN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr[-2000:]
+
+
+def _imported_roots(path: str) -> set[str]:
+    """Top-level package of every import statement in a Python source;
+    relative imports count as the port's own."""
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add("." if node.level else node.module.split(".")[0])
+    return roots
 
 
 def test_no_jax_import_in_package_sources():
@@ -57,6 +74,15 @@ def test_no_jax_import_in_package_sources():
             if f.endswith(".py"):
                 text = open(os.path.join(root, f)).read()
                 assert "import jax" not in text and "from jax" not in text, f
+                assert not _imported_roots(os.path.join(root, f)) & set(_FOREIGN), f
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py runs where JAX is not installed: its imports, at top
+    level and inside functions, name neither jax nor the JAX package."""
+    roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+    assert "srsran_projectvtlmo_tpu_torch" in roots
+    assert not roots & set(_FOREIGN), roots & set(_FOREIGN)
 
 
 _ALL = np.arange(-128, 128, dtype=np.int8)
@@ -116,8 +142,9 @@ _SCH_GRID = [
 
 @pytest.mark.parametrize("kw", _SCH_GRID)
 def test_sch_config_derived_fields_equal(kw):
-    a, b = jax_sch.SchChainConfig(**kw), sch_config.SchChainConfig(**kw)
-    assert a.tbs == b.tbs and a.segmentation == b.segmentation
+    a, b = jax_sch.SchChainConfig(**kw), sch_config.SchChainConfig(**port_kw(kw))
+    assert a.tbs == b.tbs
+    assert dataclasses.asdict(a.segmentation) == dataclasses.asdict(b.segmentation)
     assert (a.nof_subc, a.data_symbols, a.nof_data_re, a.nof_codeword_bits) == \
         (b.nof_subc, b.data_symbols, b.nof_data_re, b.nof_codeword_bits)
     assert a.cb_rate_match_sizes() == b.cb_rate_match_sizes()

@@ -135,7 +135,8 @@ def test_wrapper_dispatch_on_cpu_and_input_checks():
 
 
 def test_kernel_tables_match_graph():
-    """The kernel's CSR edge table (column | shift << 16) and CRC mask."""
+    """The kernel's CSR edge table ((shift, column * z) per edge) and CRC
+    mask; tests/test_torch_ldpc_plan.py checks them at every z."""
     from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import get_graph
 
     for bg, z in [(BaseGraph.BG1, 384), (BaseGraph.BG2, 2)]:
@@ -146,8 +147,8 @@ def test_kernel_tables_match_graph():
         for r in range(g.m):
             e = edges[row_ptr[r]:row_ptr[r + 1]]
             deg = (g.row_cols[r] >= 0).sum()
-            np.testing.assert_array_equal(e & 0xFFFF, g.row_cols[r, :deg])
-            np.testing.assert_array_equal(e >> 16, g.row_shifts[r, :deg])
+            np.testing.assert_array_equal(e[:, 1], g.row_cols[r, :deg] * z)
+            np.testing.assert_array_equal(e[:, 0], g.row_shifts[r, :deg])
         assert mask.shape == (g.k,) and (mask[g.k - 5:] == 0).all()
     smem = 384 * (5 * 46 + 68)
     assert smem <= 232448 // 2 - 1024  # two CTAs per SM at BG1 z=384

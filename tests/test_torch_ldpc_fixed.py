@@ -109,7 +109,7 @@ def test_fixed_iteration_slot_matches_jax():
     jcfg, tcfg = _configs(nof_layers=2, dmrs_symbols=(2, 11), ldpc_early_stop=False,
                           nof_ldpc_iterations=4)
     slots = _Slots(jcfg, batch=2, seed=4)
-    jrx, trx = jax_rx_slot(jcfg), build_pusch_rx_slot(tcfg)
+    jrx, trx = jax_rx_slot(jcfg), build_pusch_rx_slot(tcfg, device="cpu")
     for delay in (1, 3):  # a 3-sample delay at this noise leaves some CBs undecoded
         x = slots.samples(0.05, seed=5, delay=delay)
         to = trx(torch.as_tensor(x))
@@ -130,14 +130,15 @@ def test_port_tx_to_port_rx_fixed_iterations():
     port's fixed-iteration receiver decode every TB with 0 bit errors."""
     _, tcfg = _configs(nof_layers=2, dmrs_symbols=(2, 11), ldpc_early_stop=False)
     tb = np.random.default_rng(8).integers(0, 2, (2, tcfg.tbs)).astype(np.uint8)
-    layers = to_cplx(build_ulsch_tx_slot(tcfg)(torch.as_tensor(tb))[0])  # (B, L, 14, S)
+    tx = build_ulsch_tx_slot(tcfg, device="cpu")
+    layers = to_cplx(tx(torch.as_tensor(tb))[0])  # (B, L, 14, S)
     mix = torch.polar(torch.full((4, 2), 0.5), -2.0 * np.pi * torch.outer(
         torch.arange(4.0), torch.arange(2.0)) / 4.0)
     grid = torch.einsum("pl,blsk->bpsk", mix, layers)
     gen = torch.Generator().manual_seed(9)
     grid = grid + 0.02 * torch.complex(torch.randn(grid.shape, generator=gen),
                                        torch.randn(grid.shape, generator=gen))
-    out = build_pusch_rx_slot(tcfg)(ofdm.ofdm_modulate(from_cplx(grid), 512, 1, 0))
+    out = build_pusch_rx_slot(tcfg, device="cpu")(ofdm.ofdm_modulate(from_cplx(grid), 512, 1, 0))
     assert out["tb_crc_ok"].all() and out["cb_crc_ok"].all()
     assert (out["ldpc_iterations"] == tcfg.nof_ldpc_iterations).all()
     np.testing.assert_array_equal(flatten_tb_bits(out["tb_bits_cb"].numpy(), tcfg.tbs), tb)

@@ -40,6 +40,7 @@ from srsran_projectvtlmo_tpu_torch.models.pusch_rx import (
 from srsran_projectvtlmo_tpu_torch.ops import ofdm
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode
 from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import BaseGraph
+from tests.test_torch_host_copies import port_kw, port_mod
 
 REPO = Path(__file__).resolve().parent.parent
 CFO_HZ = 300.0
@@ -49,7 +50,7 @@ def _configs(**kw):
     base = dict(nof_rb=24, modulation=Modulation.QAM64, target_code_rate=0.6, nof_rx_ports=4,
                 dft_size=512, numerology=1)
     base.update(kw)
-    return JaxConfig(**base), PuschRxConfig(**base)
+    return JaxConfig(**base), PuschRxConfig(**port_kw(base))
 
 
 def _mix(layers: np.ndarray, nports: int) -> np.ndarray:
@@ -126,7 +127,7 @@ def test_slot_matches_jax(nof_layers, dmrs, delay, mod):
     slots = _Slots(jcfg, batch=2, seed=4)
     x = slots.samples(0.05, seed=5, delay=delay)
     jo = jax_rx_slot(jcfg)(jnp.asarray(x))
-    to = build_pusch_rx_slot(tcfg)(torch.as_tensor(x))
+    to = build_pusch_rx_slot(tcfg, device="cpu")(torch.as_tensor(x))
     _compare(jo, to, tcfg.segmentation)
     assert to["tb_crc_ok"].all()
     np.testing.assert_array_equal(flatten_tb_bits(to["tb_bits_cb"].numpy(), tcfg.tbs), slots.tb)
@@ -141,7 +142,7 @@ def test_slot_options_match_jax():
     jcfg, tcfg = _configs(**opts)
     slots = _Slots(jcfg, batch=1, seed=6)
     x = slots.samples(0.05, seed=7, delay=1, cfo_hz=0.0)
-    to = build_pusch_rx_slot(tcfg)(torch.as_tensor(x))
+    to = build_pusch_rx_slot(tcfg, device="cpu")(torch.as_tensor(x))
     _compare(jax_rx_slot(jcfg)(jnp.asarray(x)), to, tcfg.segmentation)
     assert to["tb_crc_ok"].all()
 
@@ -153,7 +154,7 @@ def test_harq_combining_matches_jax():
     jcfg, tcfg = _configs(nof_layers=2, dmrs_symbols=(2, 11))
     slots = _Slots(jcfg, batch=2, seed=4)
     x1, x2 = slots.samples(0.06, seed=1, delay=3), slots.samples(0.06, seed=2, delay=3)
-    jrx, trx = jax_rx_slot(jcfg), build_pusch_rx_slot(tcfg)
+    jrx, trx = jax_rx_slot(jcfg), build_pusch_rx_slot(tcfg, device="cpu")
     j1, t1 = jrx(jnp.asarray(x1)), trx(torch.as_tensor(x1))
     _compare(j1, t1, tcfg.segmentation)
     assert 0 < int(t1["cb_crc_ok"].sum()) < t1["cb_crc_ok"].numel()
@@ -165,14 +166,14 @@ def test_harq_combining_matches_jax():
 
 def test_from_grid_rejects_wrong_shape_and_defers_other_settings():
     _, tcfg = _configs(nof_layers=2)
-    rx = build_pusch_rx_from_grid(tcfg)
+    rx = build_pusch_rx_from_grid(tcfg, device="cpu")
     with pytest.raises(ValueError):
         rx(torch.zeros((1, 3, 14, tcfg.nof_subc, 2)))
     for kw in (dict(nof_harq_ack_bits=2), dict(hop_symbol=7, second_hop_prb=4),
                dict(dmrs_config_type=2), dict(dynamic_params=True), dict(equalizer="zf"),
                dict(decode_sch=False)):
         with pytest.raises(NotImplementedError):
-            build_pusch_rx_slot(_configs(**kw)[1])
+            build_pusch_rx_slot(_configs(**kw)[1], device="cpu")
 
 
 def _fixture_tool():
@@ -203,7 +204,7 @@ def test_fixture_round_trip_and_decode(tmp_path):
     layers = fx["layer_grids"][..., 0] + 1j * fx["layer_grids"][..., 1]
     rx = _mix(layers, 4) + 0.005 * np.random.default_rng(0).normal(size=(2, 4, 14, tcfg.nof_subc))
     pair = torch.as_tensor(np.stack([rx.real, rx.imag], -1).astype(np.float32))
-    out = build_pusch_rx_slot(tcfg)(ofdm.ofdm_modulate(pair, 512, 1, 0))
+    out = build_pusch_rx_slot(tcfg, device="cpu")(ofdm.ofdm_modulate(pair, 512, 1, 0))
     assert out["tb_crc_ok"].all() and out["cb_crc_ok"].all()
     np.testing.assert_array_equal(flatten_tb_bits(out["tb_bits_cb"].numpy(), tcfg.tbs), fx["tb_bits"])
 
@@ -220,7 +221,8 @@ def test_fixture_round_trip_and_decode(tmp_path):
 
 def test_committed_fixture_matches_north_star_shape():
     fx = load_fixture(REPO / "srsran_projectvtlmo_tpu_torch" / "data" / "northstar_fixture.npz")
-    cfg = PuschRxConfig(nof_rb=273, modulation=Modulation.QAM256, target_code_rate=948 / 1024,
+    cfg = PuschRxConfig(nof_rb=273, modulation=port_mod(Modulation.QAM256),
+                        target_code_rate=948 / 1024,
                         nof_rx_ports=4, nof_layers=2, dft_size=4096, numerology=1)
     assert fx["cfg"]["tbs"] == cfg.tbs == 638984
     assert fx["layer_grids"].shape[1:] == (2, 14, 3276, 2)

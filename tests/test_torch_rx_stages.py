@@ -24,6 +24,7 @@ from srsran_projectvtlmo_tpu.ran.modulation import Modulation
 from srsran_projectvtlmo_tpu_torch.ops import (channel_estimate, demodulation, equalization,
                                                evm, modulation, ofdm, time_alignment)
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import rate_match as rm
+from tests.test_torch_host_copies import port_mod
 
 VEC = Path(__file__).parent / "vectors"
 T = torch.as_tensor
@@ -93,15 +94,16 @@ _MODS = [Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256,
 
 @pytest.mark.parametrize("mod", _MODS, ids=lambda m: m.name)
 def test_demap_tables_equal(mod):
-    np.testing.assert_array_equal(modulation.constellation(mod), jax_mod.constellation(mod))
-    for a, b in zip(demodulation.demap_tables(mod), jax_demod._demap_tables(mod)):
+    tmod = port_mod(mod)
+    np.testing.assert_array_equal(modulation.constellation(tmod), jax_mod.constellation(mod))
+    for a, b in zip(demodulation.demap_tables(tmod), jax_demod._demap_tables(mod)):
         np.testing.assert_array_equal(a, b)
-    ta, tb = demodulation.demap_axis_tables(mod), jax_demod._demap_axis_tables(mod)
+    ta, tb = demodulation.demap_axis_tables(tmod), jax_demod._demap_axis_tables(mod)
     assert (ta is None) == (tb is None)
     if ta is not None:
         for a, b in zip(ta, tb):
             np.testing.assert_array_equal(a, b)
-        assert demodulation.demap_min_plan(mod) == jax_demod._demap_min_plan(mod)
+        assert demodulation.demap_min_plan(tmod) == jax_demod._demap_min_plan(mod)
 
 
 @pytest.mark.parametrize("mod", _MODS, ids=lambda m: m.name)
@@ -116,7 +118,7 @@ def test_soft_demap_matches_jax(mod):
     for bit_major in (False, True):
         want = np.asarray(jax_demod.soft_demap(jnp.asarray(sym), jnp.asarray(nv), mod,
                                                bit_major=bit_major)).astype(np.int32)
-        got = demodulation.soft_demap(T(sym), T(nv), mod, bit_major=bit_major).numpy()
+        got = demodulation.soft_demap(T(sym), T(nv), port_mod(mod), bit_major=bit_major).numpy()
         assert got.shape == want.shape and got.dtype == np.int8
         diff = np.abs(got.astype(np.int32) - want)
         assert diff.max() <= 1 and (diff > 0).sum() <= 2, (bit_major, (diff > 0).sum())
@@ -130,7 +132,7 @@ def test_soft_demap_within_one_lsb_of_reference(key):
     mod = {2: Modulation.QPSK, 4: Modulation.QAM16, 6: Modulation.QAM64,
            8: Modulation.QAM256}[int(key.split("_")[0][2:])]
     ours = demodulation.soft_demap(T(_DEMAP[f"{key}_sym"][None]), T(_DEMAP[f"{key}_nvar"][None]),
-                                   mod).numpy()[0].astype(np.int32)
+                                   port_mod(mod)).numpy()[0].astype(np.int32)
     assert np.abs(ours - _DEMAP[f"{key}_llr"].astype(np.int32)).max() <= 1
 
 
@@ -140,7 +142,8 @@ def test_evm_matches_jax(mod):
     rng = np.random.default_rng(6)
     sym = (rng.normal(size=(3, 500, 2)) * 0.7).astype(np.float32)
     want = np.asarray(jax_evm.evm(jnp.asarray(sym), mod))
-    np.testing.assert_allclose(evm.evm(T(sym), mod).numpy(), want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(evm.evm(T(sym), port_mod(mod)).numpy(), want, rtol=1e-6,
+                               atol=1e-7)
 
 
 # ------------------------------------------------------------- estimation --

@@ -42,6 +42,7 @@ from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
 from srsran_projectvtlmo_tpu_torch.ops import demodulation, modulation, precoding
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import graphs, segment
 from srsran_projectvtlmo_tpu_torch.ops.ldpc.encode import ldpc_encode
+from tests.test_torch_host_copies import port_kw, port_mod
 
 VECTORS = Path(__file__).parent / "vectors"
 
@@ -102,17 +103,18 @@ def test_segmentation_bit_exact_vs_jax(tbs, rate):
 def test_modulate_and_hard_demap_vs_jax(mod):
     qm = bits_per_symbol(mod)
     bits = np.random.default_rng(qm).integers(0, 2, (3, 30 * qm)).astype(np.uint8)
-    got = modulation.modulate(torch.as_tensor(bits), mod)
+    tmod = port_mod(mod)
+    got = modulation.modulate(torch.as_tensor(bits), tmod)
     assert got.dtype == torch.complex64
     np.testing.assert_array_equal(got.numpy(), np.asarray(jax_mod.modulate(jnp.asarray(bits), mod)))
-    np.testing.assert_array_equal(modulation.modulate_np(bits[0], mod),
+    np.testing.assert_array_equal(modulation.modulate_np(bits[0], tmod),
                                   jax_mod.modulate_np(bits[0], mod))
     llr = np.random.default_rng(5).integers(-127, 128, 300).astype(np.int8)
     np.testing.assert_array_equal(demodulation.hard_demap(torch.as_tensor(llr)).numpy(),
                                   np.asarray(jax_demod.hard_demap(jnp.asarray(llr))))
     if mod in (Modulation.QPSK, Modulation.QAM16, Modulation.QAM64, Modulation.QAM256):
         planes = bits.reshape(3, 30, qm).transpose(0, 2, 1).copy()  # (B, Qm, nsym)
-        p_got = modulation.modulate_planes(torch.as_tensor(planes), mod)
+        p_got = modulation.modulate_planes(torch.as_tensor(planes), tmod)
         np.testing.assert_array_equal(p_got.numpy(), got.numpy())
         np.testing.assert_array_equal(
             p_got.numpy(), np.asarray(jax_mod.modulate_planes(jnp.asarray(planes), mod)))
@@ -126,7 +128,8 @@ with np.load(VECTORS / "mod_reference.npz") as _m:
 def test_modulate_matches_reference_vectors(key):
     mod = {1: Modulation.BPSK, 2: Modulation.QPSK, 4: Modulation.QAM16,
            6: Modulation.QAM64, 8: Modulation.QAM256}[int(key.split("_")[0][2:])]
-    sym = modulation.modulate(torch.as_tensor(_MOD[f"{key}_bits"][None]), mod)[0].numpy()
+    bits = torch.as_tensor(_MOD[f"{key}_bits"][None])
+    sym = modulation.modulate(bits, port_mod(mod))[0].numpy()
     got = np.stack([sym.real, sym.imag], -1).astype(np.float32)
     np.testing.assert_allclose(got, _MOD[f"{key}_sym"], rtol=0, atol=1e-6)
 
@@ -157,9 +160,9 @@ def test_layer_mapping_and_precoding_vs_jax(nof_layers, nof_ports):
 def test_sch_codeword_bit_exact_vs_jax(kw, reduced_g):
     """Several codeblocks with two E sizes (and a G reduced as UCI would),
     rv 2 over 4 layers, repetition at a low rate with rv 3."""
-    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**kw)
+    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**port_kw(kw))
     tb = np.random.default_rng(tcfg.tbs).integers(0, 2, (2, tcfg.tbs)).astype(np.uint8)
-    qm = bits_per_symbol(tcfg.modulation)
+    qm = bits_per_symbol(jcfg.modulation)
     g = tcfg.nof_codeword_bits - 3 * qm * tcfg.nof_layers if reduced_g else None
     got = sch_tx.build_sch_codeword_tx(tcfg, g)(torch.as_tensor(tb))
     assert got.dtype == torch.uint8
@@ -171,7 +174,7 @@ def test_sch_codeword_bit_exact_vs_jax(kw, reduced_g):
 
 def test_sch_symbols_bit_exact_vs_jax():
     kw = dict(nof_rb=4, modulation=Modulation.QAM16, target_code_rate=0.4, rnti=0x1234, n_id=77)
-    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**kw)
+    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**port_kw(kw))
     tb = np.random.default_rng(2).integers(0, 2, (2, tcfg.tbs)).astype(np.uint8)
     np.testing.assert_array_equal(
         sch_tx.build_sch_symbols_tx(tcfg)(torch.as_tensor(tb)).numpy(),
@@ -182,9 +185,9 @@ def test_sch_symbols_bit_exact_vs_jax():
 def test_ulsch_tx_matches_jax(nof_layers, dmrs):
     kw = dict(nof_rb=24, modulation=Modulation.QAM64, target_code_rate=0.6, nof_layers=nof_layers,
               nof_rx_ports=4, dft_size=512, numerology=1, dmrs_symbols=dmrs, n_id=7, slot=3)
-    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**kw)
+    jcfg, tcfg = JaxConfig(**kw), PuschRxConfig(**port_kw(kw))
     tb = np.random.default_rng(nof_layers).integers(0, 2, (2, tcfg.tbs)).astype(np.uint8)
-    grid, samples = build_ulsch_tx_slot(tcfg)(torch.as_tensor(tb))
+    grid, samples = build_ulsch_tx_slot(tcfg, device="cpu")(torch.as_tensor(tb))
     j_grid, j_samples = (np.asarray(a) for a in jax_ulsch_tx(jcfg)(jnp.asarray(tb)))
     assert grid.shape == j_grid.shape and samples.shape == j_samples.shape
     assert grid.dtype == samples.dtype == torch.float32
@@ -198,8 +201,8 @@ def test_ulsch_tx_rejects_deferred_settings():
     for kw in (dict(nof_harq_ack_bits=2), dict(nof_csi_part1_bits=5),
                dict(hop_symbol=7, second_hop_prb=4), dict(dmrs_config_type=2)):
         with pytest.raises(NotImplementedError):
-            build_ulsch_tx_slot(PuschRxConfig(**base, **kw))
-    tx = build_ulsch_tx_slot(PuschRxConfig(**base))
+            build_ulsch_tx_slot(PuschRxConfig(**port_kw(base), **kw), device="cpu")
+    tx = build_ulsch_tx_slot(PuschRxConfig(**port_kw(base)), device="cpu")
     with pytest.raises(ValueError):
         tx(torch.zeros((1, 10), dtype=torch.uint8))
 
