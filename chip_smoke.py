@@ -36,7 +36,28 @@ non-zero:
 8. device-bound timing with CUDA events, one JSON line per metric, each
    kernel line with its bound (see `ldpc_bound`);
 9. a torch.profiler breakdown of the north-star slot at batch 32: device
-   kernel time per call and the LDPC kernel's share, 2 and 6 iterations.
+   kernel time per call and the LDPC kernel's share, 2 and 6 iterations;
+10. the UCI slice at the north-star shape, batch 4: the port's Tx sends a
+   2-bit HARQ-ACK (short block, punctures the SCH), a 20-bit CSI part 1 and
+   a 48-bit CSI part 2 (CRC11 + polar) through the same mix, noise and OFDM
+   into `build_pusch_rx_slot`; every TB, CB, ACK and CSI bit must come back,
+   CSI metrics 1.0, with the early-stop kernel launched; then a batch with
+   a 40-bit ACK (polar, rate-matched around the SCH);
+11. the CSI part-1 -> part-2 protocol: `PuschUciProcessor` with a 6-bit CSI
+   part 1 and a 64-entry part-2 size map, one batch whose part 1 selects a
+   24-bit (polar) part 2 and one that selects none; phase B launches the
+   kernel; one two-phase call timed;
+12. receiver options, each decoding every TB with the kernel launched:
+   ZF and DM-RS type 2 at 4x2; `dynamic_params` with four UEs (distinct
+   rnti and n_id) in one batch-4 call, SCH only and with the UCI fields of
+   phase 10 (per-row DM-RS references, descrambling and placeholder fix
+   signs built on the host); intra-slot hopping at 1 layer x 4 ports, a
+   136-PRB allocation whose second hop starts at PRB 137 of the 273-PRB
+   carrier, each hop's rows gathered from the demodulated carrier;
+13. a torch.profiler profile of the UCI slice at batch 32 (random REs, 6
+   iterations, early stop): device time and kernel launches per call, the
+   time and launches inside `pusch_rx.uci`, the launches of each UCI
+   field's decoder, and the back-to-back time per call.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -74,6 +95,15 @@ HBM_BYTES_PER_S = 3.35e12
 #: Bound on |port Tx grid - JAX Tx grid|: the fixture stores the JAX grids as
 #: float16, whose half spacing is 2^-11 ~ 4.9e-4 for values in [1, 2).
 TX_GRID_TOL = 1e-3
+#: The north-star carrier, and the hopping phase's allocation in it: 136 PRB
+#: from PRB 0, the second hop from PRB 137 (the carrier's last 136 PRB).
+NS_PRB, NS_DFT = 273, 4096
+HOP_PRB, SECOND_HOP_PRB = 136, 137
+#: Four UEs of one dynamic_params call: (rnti, n_id).
+UES = ((0x4601, 1), (0x1234, 77), (0x2B67, 500), (0x7001, 1007))
+#: Two-phase CSI: part-2 size by the value of the 6-bit part 1.
+PART2_MAP = tuple((0, 24, 8, 64)[v % 4] for v in range(64))
+UCI_FIELDS = dict(nof_harq_ack_bits=2, nof_csi_part1_bits=20, nof_csi_part2_bits=48)
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -256,25 +286,27 @@ def ldpc_bound(bg, z: int, cbs: int, sweeps: int, early_stop: bool):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def northstar_cfg(iterations: int, early_stop: bool = True):
+def northstar_cfg(iterations: int, early_stop: bool = True, **kw):
     from srsran_projectvtlmo_tpu_torch.ops.modulation import Modulation
     from srsran_projectvtlmo_tpu_torch.models.pusch_rx import PuschRxConfig
 
-    return PuschRxConfig(nof_rb=273, modulation=Modulation.QAM256,
-                         target_code_rate=948.0 / 1024.0, nof_rx_ports=4, nof_layers=2,
-                         dft_size=4096, numerology=1, nof_ldpc_iterations=iterations,
-                         ldpc_early_stop=early_stop)
+    return PuschRxConfig(**{"nof_rb": NS_PRB, "modulation": Modulation.QAM256,
+                            "target_code_rate": 948.0 / 1024.0, "nof_rx_ports": 4,
+                            "nof_layers": 2, "dft_size": NS_DFT, "numerology": 1,
+                            "nof_ldpc_iterations": iterations, "ldpc_early_stop": early_stop,
+                            **kw})
 
 
 def slot_samples(layers, cfg, gen):
-    """(B, L, 14, S) complex layer grids -> (B, 4, nsamples, 2): a fixed 4x2
+    """(B, L, 14, S) complex layer grids -> (B, 4, nsamples, 2): a fixed 4xL
     mix, AWGN from `gen`, the port's OFDM modulator."""
     from srsran_projectvtlmo_tpu_torch.ops import ofdm
     from srsran_projectvtlmo_tpu_torch.utils.cplx import from_cplx
 
+    nl = layers.shape[1]
     p = torch.arange(4, device="cuda", dtype=torch.float32)[:, None]
-    l = torch.arange(2, device="cuda", dtype=torch.float32)[None, :]
-    mix = torch.polar(torch.full((4, 2), 0.5, device="cuda"), -2.0 * np.pi * p * l / 4.0)
+    l = torch.arange(nl, device="cuda", dtype=torch.float32)[None, :]
+    mix = torch.polar(torch.full((4, nl), 0.5, device="cuda"), -2.0 * np.pi * p * l / 4.0)
     grid = torch.einsum("pl,blsk->bpsk", mix, layers)
     noise = torch.complex(torch.randn(grid.shape, generator=gen, device="cuda"),
                           torch.randn(grid.shape, generator=gen, device="cuda"))
@@ -282,21 +314,33 @@ def slot_samples(layers, cfg, gen):
     return ofdm.ofdm_modulate(from_cplx(grid), cfg.dft_size, cfg.numerology, 0)
 
 
+def count_launches(fn, early_stop: bool, label: str):
+    """fn() with the kernel launch counts set to 0 just before and read just
+    after: the call must launch the mode of the decoder it was configured
+    with and not the other one.  Returns (fn's result, that mode's count)."""
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
+
+    mode, other = (("ldpc_decode_es", "ldpc_decode") if early_stop
+                   else ("ldpc_decode", "ldpc_decode_es"))
+    decode_cuda.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(decode_cuda.LAUNCHES)
+    if launches[mode] == 0 or launches[other] != 0:
+        raise SystemExit(f"{label}: the path must launch {mode} and not {other}: {launches}")
+    return out, launches[mode]
+
+
 def run_slice(cfg, samples, tb_bits, label):
     """Decode `samples` with `build_pusch_rx_slot`; every TB and CB must pass
     with `tb_bits`, and the call must launch the kernel mode of cfg's decoder
     and not the other one.  Returns that mode's launch count."""
     from srsran_projectvtlmo_tpu_torch.models.pusch_rx import build_pusch_rx_slot, flatten_tb_bits
-    from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
 
     rx = build_pusch_rx_slot(cfg, "cuda")
     rx(samples)  # first call builds tables and warms up
     torch.cuda.synchronize()
-
-    decode_cuda.reset_launch_counts()
-    out = rx(samples)
-    torch.cuda.synchronize()
-    launches = dict(decode_cuda.LAUNCHES)
+    out, count = count_launches(lambda: rx(samples), cfg.ldpc_early_stop, label)
 
     b = samples.shape[0]
     seg = cfg.segmentation
@@ -312,18 +356,15 @@ def run_slice(cfg, samples, tb_bits, label):
             raise SystemExit(f"{key} is not finite: {out[key].tolist()}")
     tb = flatten_tb_bits(out["tb_bits_cb"].cpu().numpy(), cfg.tbs)
     bit_errors = int((tb != tb_bits).sum())
-    mode, other = (("ldpc_decode_es", "ldpc_decode") if cfg.ldpc_early_stop
-                   else ("ldpc_decode", "ldpc_decode_es"))
-    print(f"{label} 273 PRB QAM256 4x2, batch {b}: tb_crc_ok {out['tb_crc_ok'].tolist()}, "
+    print(f"{label} {cfg.nof_rb} PRB QAM256 4x{cfg.nof_layers}, batch {b}: "
+          f"tb_crc_ok {out['tb_crc_ok'].tolist()}, "
           f"cb_crc_ok {int(out['cb_crc_ok'].sum())}/{out['cb_crc_ok'].numel()}, "
           f"TB bit errors {bit_errors}, iterations max {int(out['ldpc_iterations'].max())}, "
           f"snr_db {[round(v, 2) for v in out['snr_db'].tolist()]}, "
-          f"evm {[round(v, 4) for v in out['evm'].tolist()]}, kernel launches {launches}")
+          f"evm {[round(v, 4) for v in out['evm'].tolist()]}, kernel launches {count}")
     if not (bool(out["tb_crc_ok"].all()) and bool(out["cb_crc_ok"].all()) and bit_errors == 0):
         raise SystemExit(f"{label}: the north-star slot did not decode to the fixture's TB bits")
-    if launches[mode] == 0 or launches[other] != 0:
-        raise SystemExit(f"{label}: the main path must launch {mode} and not {other}: {launches}")
-    return launches[mode]
+    return count
 
 
 def phase_slice(fx, gen):
@@ -510,6 +551,294 @@ def phase_profile(gen):
         del x
 
 
+def uci_payloads(cfg, batch: int, gen, csi2: int | None = None) -> dict:
+    """Random (batch, K) payload bits on the card for each UCI field of cfg."""
+    sizes = {"ack_bits": cfg.nof_harq_ack_bits, "csi1_bits": cfg.nof_csi_part1_bits,
+             "csi2_bits": cfg.nof_csi_part2_bits if csi2 is None else csi2}
+    return {k: torch.randint(0, 2, (batch, n), generator=gen, device="cuda", dtype=torch.uint8)
+            for k, n in sizes.items() if n}
+
+
+def random_tb(cfg, batch: int, gen) -> torch.Tensor:
+    return torch.randint(0, 2, (batch, cfg.tbs), generator=gen, device="cuda", dtype=torch.uint8)
+
+
+def check_decoded(out, cfg, tb, uci, label: str, launches: int) -> None:
+    """Every TB and CB passes with the sent TB bits; every UCI bit equals what
+    was sent; a polar field's metric (its CRC verdict) is 1.0 and a short-block
+    field's detection metric clears 0.25, the decoder's validity threshold."""
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import flatten_tb_bits
+
+    tb_rx = flatten_tb_bits(out["tb_bits_cb"].cpu().numpy(), cfg.tbs)
+    bit_errors = int((tb_rx != tb.cpu().numpy()).sum())
+    ok = bool(out["tb_crc_ok"].all()) and bool(out["cb_crc_ok"].all()) and bit_errors == 0
+    fields = []
+    for name, sent in uci.items():
+        key = "harq_ack" if name == "ack_bits" else name[:-len("_bits")]
+        errors = int((torch.as_tensor(out[f"{key}_bits"], device=sent.device) != sent).sum())
+        metric = torch.as_tensor(out[f"{key}_metric"]).float()
+        good = bool((metric == 1.0).all()) if sent.shape[1] >= 12 else bool((metric > 0.25).all())
+        ok = ok and errors == 0 and good
+        fields.append(f"{key} {sent.shape[1]} bits: errors {errors}, "
+                      f"metric {[round(v, 4) for v in metric.tolist()]}")
+    for key in ("snr_db", "evm", "ta_s"):
+        ok = ok and bool(torch.isfinite(out[key]).all())
+    print(f"{label} {cfg.nof_rb} PRB QAM256 {cfg.nof_rx_ports}x{cfg.nof_layers}, batch "
+          f"{tb.shape[0]}: tb_crc_ok {out['tb_crc_ok'].tolist()}, cb_crc_ok "
+          f"{int(out['cb_crc_ok'].sum())}/{out['cb_crc_ok'].numel()}, TB bit errors {bit_errors}; "
+          f"{'; '.join(fields) or 'no UCI'}; kernel launches {launches}")
+    if not ok:
+        raise SystemExit(f"{label}: the slot did not decode to what was sent")
+
+
+def uci_slice(cfg, batch: int, gen, label: str) -> int:
+    """The port's Tx with cfg's UCI fields -> mix, noise, OFDM -> the receive
+    slot; checked as `check_decoded`.  Returns the launches of the call."""
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import build_pusch_rx_slot
+    from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    tb, uci = random_tb(cfg, batch, gen), uci_payloads(cfg, batch, gen)
+    grid, _ = build_ulsch_tx_slot(cfg, "cuda")(tb, **uci)
+    samples = slot_samples(to_cplx(grid), cfg, gen)
+    rx = build_pusch_rx_slot(cfg, "cuda")
+    rx(samples)
+    torch.cuda.synchronize()
+    out, launches = count_launches(lambda: rx(samples), True, label)
+    check_decoded(out, cfg, tb, uci, label, launches)
+    return launches
+
+
+def phase_uci(gen) -> dict:
+    """The UCI slice (2-bit ACK, 20-bit CSI part 1, 48-bit CSI part 2) and a
+    40-bit ACK, each at batch 4."""
+    return {"uci": uci_slice(northstar_cfg(6, **UCI_FIELDS), 4, gen, "UCI slice"),
+            "ack40": uci_slice(northstar_cfg(6, nof_harq_ack_bits=40), 4, gen,
+                               "large-ACK slice")}
+
+
+def demodulate(samples, cfg):
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+
+    return ofdm.ofdm_demodulate(samples, cfg.nof_subc, cfg.dft_size, cfg.numerology, 0,
+                                out_dtype="bf16")
+
+
+def phase_two_phase(gen) -> dict:
+    """`PuschUciProcessor` (phase A with decode_sch=False, the part-2 size
+    decided on the host from the decoded part 1, phase B) on a batch whose
+    part 1 selects a 24-bit polar part 2 and on one that selects none."""
+    from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
+    from srsran_projectvtlmo_tpu_torch.phy.pusch_uci import PuschUciConfig, PuschUciProcessor
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    cfg = northstar_cfg(6, nof_harq_ack_bits=2, nof_csi_part1_bits=6)
+    proc = PuschUciProcessor(PuschUciConfig(rx=cfg, part2_size_map=PART2_MAP), "cuda")
+    launches = {}
+    for value in (5, 4):
+        size = PART2_MAP[value]
+        tb, uci = random_tb(cfg, 4, gen), uci_payloads(cfg, 4, gen, csi2=size)
+        uci["csi1_bits"][:] = torch.tensor([(value >> (5 - i)) & 1 for i in range(6)],
+                                           dtype=torch.uint8, device="cuda")
+        grid, _ = build_ulsch_tx_slot(cfg, "cuda", nof_csi_part2_bits=size)(tb, **uci)
+        rx_grid = demodulate(slot_samples(to_cplx(grid), cfg, gen), cfg)
+        proc.process(rx_grid)
+        torch.cuda.synchronize()
+        label = f"two-phase CSI, part 1 = {value} -> part 2 of {size} bits"
+        out, n = count_launches(lambda: proc.process(rx_grid), True, label)
+        host_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            proc.process(rx_grid)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        if out["csi2_size"] != size or not bool(np.all(out["csi1_valid"])):
+            raise SystemExit(f"{label}: part 2 sized {out['csi2_size']}, part 1 valid "
+                             f"{out['csi1_valid']}")
+        check_decoded(out, cfg, tb, uci, label, n)
+        print(json.dumps({"profile": f"pusch_uci_two_phase_batch4_csi2_{size}",
+                          "host_ms_per_call": float(np.median(host_ms)),
+                          "host_ms_calls": host_ms, "kernel_launches": n,
+                          "device": torch.cuda.get_device_name(0)}))
+        launches[f"two_phase_csi2_{size}"] = n
+    return launches
+
+
+def dynamic_inputs(rx_cfg, ue_cfgs):
+    """Per-row call inputs of a dynamic_params receiver, built on the host:
+    DM-RS references, descrambling signs from cinit = (rnti << 15) + n_id and
+    the UCI placeholder fix signs, all on the card."""
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import cached_demux_plan, dmrs_reference
+    from srsran_projectvtlmo_tpu_torch.ops import prg
+    from srsran_projectvtlmo_tpu_torch.ops.ulsch_demux import placeholder_fix_signs
+    from srsran_projectvtlmo_tpu_torch.ran.modulation import bits_per_symbol
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import np_to_pair
+
+    qm = bits_per_symbol(rx_cfg.modulation)
+    plan, _ = cached_demux_plan(rx_cfg)
+    refs, signs, fixes = [], [], {"ack": [], "csi1": [], "csi2": []}
+    for ue in ue_cfgs:
+        refs.append(np_to_pair(dmrs_reference(ue)))
+        scr = prg.gold_sequence_bits(ue.scrambling_cinit(), rx_cfg.nof_codeword_bits)
+        signs.append(1 - 2 * scr.astype(np.int8))
+        for name, payload in (("ack", rx_cfg.nof_harq_ack_bits),
+                              ("csi1", rx_cfg.nof_csi_part1_bits),
+                              ("csi2", rx_cfg.nof_csi_part2_bits)):
+            if payload:
+                fixes[name].append(placeholder_fix_signs(plan.field_bit_idx(name), payload, qm,
+                                                         scr).astype(np.int8))
+    on_card = lambda rows: torch.as_tensor(np.stack(rows), device="cuda")
+    return (on_card(refs), on_card(signs),
+            tuple(on_card(fixes[n]) if fixes[n] else None for n in ("ack", "csi1", "csi2")))
+
+
+def phase_options(fx, gen) -> dict:
+    """ZF and DM-RS type 2 at 4x2; dynamic_params with four UEs in one call,
+    SCH only and with UCI; intra-slot hopping at 1 layer x 4 ports."""
+    import dataclasses
+
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import (
+        PuschRxConfig, build_pusch_rx_from_grid)
+    from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
+    from srsran_projectvtlmo_tpu_torch.ops.modulation import Modulation
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    launches = {}
+    cfg = northstar_cfg(6, equalizer="zf")
+    layers = to_cplx(torch.as_tensor(fx["layer_grids"], device="cuda"))
+    launches["zf"] = run_slice(cfg, slot_samples(layers, cfg, gen), fx["tb_bits"], "ZF slice")
+    del layers
+    cfg = northstar_cfg(6, dmrs_config_type=2)
+    grid, _ = build_ulsch_tx_slot(cfg, "cuda")(torch.as_tensor(fx["tb_bits"], device="cuda"))
+    launches["dmrs_type2"] = run_slice(cfg, slot_samples(to_cplx(grid), cfg, gen),
+                                       fx["tb_bits"], "DM-RS type 2 slice")
+
+    for name, kw in (("dynamic_sch", {}), ("dynamic_uci", UCI_FIELDS)):
+        cfg = northstar_cfg(6, dynamic_params=True, **kw)
+        ues = [dataclasses.replace(cfg, dynamic_params=False, rnti=r, n_id=n) for r, n in UES]
+        tb, uci = random_tb(cfg, len(ues), gen), uci_payloads(cfg, len(ues), gen)
+        grids = [build_ulsch_tx_slot(ue, "cuda")(tb[i:i + 1], **{k: v[i:i + 1]
+                                                                  for k, v in uci.items()})[0]
+                 for i, ue in enumerate(ues)]
+        rx_grid = demodulate(slot_samples(to_cplx(torch.cat(grids)), cfg, gen), cfg)
+        del grids
+        ref, signs, fix = dynamic_inputs(cfg, ues)
+        rx = build_pusch_rx_from_grid(cfg, "cuda")
+        call = lambda: rx(rx_grid, None, ref, signs, fix if uci else None)
+        call()
+        torch.cuda.synchronize()
+        label = f"dynamic_params, {len(ues)} UEs (rnti, n_id) {list(UES)}, " + \
+            ("with UCI" if uci else "SCH only")
+        out, launches[name] = count_launches(call, True, label)
+        check_decoded(out, cfg, tb, uci, label, launches[name])
+
+    cfg = PuschRxConfig(nof_rb=HOP_PRB, modulation=Modulation.QAM256,
+                        target_code_rate=948.0 / 1024.0, nof_rx_ports=4, nof_layers=1,
+                        dft_size=NS_DFT, numerology=1, dmrs_symbols=(2, 9), hop_symbol=7,
+                        second_hop_prb=SECOND_HOP_PRB, nof_ldpc_iterations=6)
+    tb = random_tb(cfg, 4, gen)
+    grid = to_cplx(build_ulsch_tx_slot(cfg, "cuda")(tb)[0])  # (B, 14, S) allocation
+    # Each symbol's rows sit at its hop's PRB in the carrier; the receiver
+    # takes the rows gathered back from the demodulated carrier.
+    hop_start = torch.tensor([(SECOND_HOP_PRB if s >= cfg.hop_symbol else cfg.rb_start) * 12
+                              for s in range(14)], device="cuda")
+    rows = hop_start[:, None] + torch.arange(cfg.nof_subc, device="cuda")[None, :]
+    sym = torch.arange(14, device="cuda")[:, None]
+    carrier = torch.zeros((grid.shape[0], 14, NS_PRB * 12), dtype=grid.dtype, device="cuda")
+    carrier[:, sym, rows] = grid
+    car_cfg = northstar_cfg(6, nof_layers=1)
+    rx_carrier = demodulate(slot_samples(carrier[:, None], car_cfg, gen), car_cfg)
+    rx_grid = rx_carrier[:, :, sym, rows]  # (B, 4, 14, S, 2)
+    rx = build_pusch_rx_from_grid(cfg, "cuda")
+    rx(rx_grid)
+    torch.cuda.synchronize()
+    label = (f"hopping, PRB {cfg.rb_start} then {SECOND_HOP_PRB} of {NS_PRB} from symbol "
+             f"{cfg.hop_symbol}")
+    out, launches["hopping"] = count_launches(lambda: rx(rx_grid), True, label)
+    check_decoded(out, cfg, tb, {}, label, launches["hopping"])
+    return launches
+
+
+def device_events(prof):
+    """(kernels, annotation spans) among a profile's device events."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ([e for e in events if not e.name.startswith("pusch_rx.")],
+            [e for e in events if e.name.startswith("pusch_rx.")])
+
+
+def phase_uci_profile(gen):
+    """torch.profiler over 3 calls of the UCI slice at batch 32 (random REs,
+    6 iterations, early stop), the launches of each UCI field's decoder at
+    batch 32, and the slice's back-to-back time per call (no profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import build_pusch_rx_slot, decode_uci_field
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.ran.modulation import bits_per_symbol
+
+    calls, dev = 3, torch.cuda.get_device_name(0)
+    cfg = northstar_cfg(6, **UCI_FIELDS)
+    rx = build_pusch_rx_slot(cfg, "cuda")
+    x = torch.randn((32, 4, ofdm.slot_sample_count(cfg.dft_size, cfg.numerology, 0), 2),
+                    generator=gen, device="cuda") * 0.3
+    rx(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            rx(x)
+        torch.cuda.synchronize()
+    kernels, spans = device_events(prof)
+    uci_spans = [e.time_range for e in spans if e.name == "pusch_rx.uci"]
+    in_uci = [k for k in kernels
+              if any(s.start <= k.time_range.start < s.end for s in uci_spans)]
+    host_uci = [e.time_range.elapsed_us() for e in prof.events()
+                if e.name == "pusch_rx.uci" and e.device_type == torch.autograd.DeviceType.CPU]
+    b2b_ms = cuda_time_ms(lambda: rx(x), reps=5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        rx(x)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 5
+    if not kernels:
+        print("profile UCI slice batch 32: not measured (no device events)")
+    else:
+        print(json.dumps({
+            "profile": "pusch_rx_uci_batch32_6it_early-stop",
+            "device_kernel_ms_per_call": sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls,
+            "kernels_per_call": len(kernels) / calls,
+            "uci_span_device_ms_per_call": (sum(s.elapsed_us() for s in uci_spans) / 1e3 / calls
+                                            if uci_spans else "not measured"),
+            "uci_kernel_ms_per_call": sum(k.time_range.elapsed_us() for k in in_uci) / 1e3 / calls,
+            "uci_kernels_per_call": len(in_uci) / calls,
+            "uci_host_ms_per_call": sum(host_uci) / 1e3 / calls,
+            "ldpc_kernel_ms_per_call": sum(e.time_range.elapsed_us() for e in kernels
+                                           if "ldpc_decode_kernel" in e.name) / 1e3 / calls,
+            "back_to_back_ms_per_call": b2b_ms, "host_wall_ms_per_call": host_ms,
+            "device": dev}))
+    del x
+
+    qm = bits_per_symbol(cfg.modulation)
+    _, info = cfg.demux_plan()
+    _, info40 = northstar_cfg(6, nof_harq_ack_bits=40).demux_plan()
+    for field, k, e in (("ack", 2, info.nof_harq_ack_bits), ("csi1", 20, info.nof_csi_part1_bits),
+                        ("csi2", 48, info.nof_csi_part2_bits),
+                        ("ack", 40, info40.nof_harq_ack_bits)):
+        llr = torch.randint(-120, 121, (32, e), generator=gen, device="cuda", dtype=torch.int32)
+        decode_uci_field(llr, k, qm)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode_uci_field(llr, k, qm)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+        kernels, _ = device_events(prof)
+        print(json.dumps({"profile": f"uci_field_decode_{field}_{k}bits_e{e}_batch32",
+                          "decoder": "short block" if k <= 11 else "CRC + polar",
+                          "kernel_launches": len(kernels),
+                          "device_kernel_ms": sum(x.time_range.elapsed_us() for x in kernels) / 1e3,
+                          "host_ms_under_profiler": host, "device": dev}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -541,6 +870,9 @@ def main() -> int:
     fx_launches = phase_fixed_slice(layers, fx, gen)
     times = phase_timing(gen)
     phase_profile(gen)
+    new_paths = {**phase_uci(gen), **phase_two_phase(gen), **phase_options(fx, gen)}
+    print(json.dumps({"ldpc_decode_es_launches_per_call": new_paths}))
+    phase_uci_profile(gen)
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
             ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]

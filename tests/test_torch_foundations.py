@@ -32,7 +32,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _MODULES = ("models.pusch_rx", "models.sch_config", "models.sch_tx", "models.ulsch_tx",
             "models.channel", "ops.ldpc.encode", "ops.ldpc.segment", "ops.ldpc.decode_cuda",
             "ops.modulation", "ops.demodulation", "ops.precoding", "ops.prg", "ops.dmrs",
-            "ops.ulsch_demux", "ran.ldpc_params", "ran.modulation", "ran.sch")
+            "ops.ulsch_demux", "ops.equalization", "ops.short_block", "ops.uci",
+            "ops.polar.code", "ops.polar.allocate", "ops.polar.encode", "ops.polar.rate_match",
+            "ops.polar.decode", "phy.pusch_uci", "ran.ldpc_params", "ran.modulation", "ran.sch",
+            "ran.ulsch_info")
 _FOREIGN = ("jax", "srsran_projectvtlmo_tpu")
 
 

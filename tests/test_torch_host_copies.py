@@ -1,8 +1,8 @@
 """PyTorch port, host-side copies: the port carries its own copies of the JAX
 package's host modules (`ran/ldpc_params`, `ran/modulation`, `ran/sch`,
-`ops/prg`, `ops/dmrs`, `ops/ulsch_demux`) and of the base-graph data file, so
-that it imports nothing of the JAX package.  Each copy is held equal to its
-original here, value by value.
+`ran/ulsch_info`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`)
+and of the base-graph and polar data files, so that it imports nothing of the
+JAX package.  Each copy is held equal to its original here, value by value.
 
 `port_mod` and `port_kw` translate the JAX package's `Modulation` into the
 port's own enum, for tests that hand one configuration to both packages.
@@ -17,12 +17,15 @@ import pytest
 from srsran_projectvtlmo_tpu.ops import dmrs as jax_dmrs
 from srsran_projectvtlmo_tpu.ops import prg as jax_prg
 from srsran_projectvtlmo_tpu.ops import ulsch_demux as jax_demux
+from srsran_projectvtlmo_tpu.ops.polar import code as jax_polar_code
 from srsran_projectvtlmo_tpu.ran import ldpc_params as jax_params
 from srsran_projectvtlmo_tpu.ran import modulation as jax_modulation
 from srsran_projectvtlmo_tpu.ran import sch as jax_sch
+from srsran_projectvtlmo_tpu.ran import ulsch_info as jax_ulsch_info
 
 from srsran_projectvtlmo_tpu_torch.ops import dmrs, prg, ulsch_demux
-from srsran_projectvtlmo_tpu_torch.ran import ldpc_params, modulation, sch
+from srsran_projectvtlmo_tpu_torch.ops.polar import code as polar_code
+from srsran_projectvtlmo_tpu_torch.ran import ldpc_params, modulation, sch, ulsch_info
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -158,9 +161,63 @@ def test_graph_data_file_equal():
 
     ours = REPO / "srsran_projectvtlmo_tpu_torch" / "data" / "ldpc_base_graphs.npz"
     assert graphs._DATA == ours
-    with np.load(ours) as a, np.load(REPO / "srsran_projectvtlmo_tpu" / "data"
-                                     / "ldpc_base_graphs.npz") as b:
+    _data_files_equal(ours, REPO / "srsran_projectvtlmo_tpu" / "data" / "ldpc_base_graphs.npz")
+
+
+def _data_files_equal(ours: Path, theirs: Path):
+    with np.load(ours) as a, np.load(theirs) as b:
         assert sorted(a.files) == sorted(b.files)
         for k in b.files:
             assert a[k].dtype == b[k].dtype, k
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("nof_rb,dmrs_symbols,layers,qm,rate", [
+    (12, (2, 11), 2, 4, 0.5), (273, (2, 11), 2, 8, 948 / 1024), (5, (2,), 1, 2, 0.2),
+    (24, (3, 7, 11), 4, 6, 0.6)])
+def test_ulsch_info_equal(nof_rb, dmrs_symbols, layers, qm, rate):
+    """UCI budgets over payload sizes (none, short block, polar, 2-codeblock)
+    and beta offsets, with the SCH size they leave."""
+    nof_re = nof_rb * 12 * (14 - len(dmrs_symbols))
+    tbs = sch.tbs_calculator(nof_re=nof_re, target_code_rate=rate, modulation_bits=qm,
+                             nof_layers=layers)
+    seg = sch.sch_segmentation_info(tbs, rate)
+    for ack, csi1, csi2 in ((0, 0, 0), (1, 0, 0), (2, 20, 48), (40, 6, 0), (11, 0, 9),
+                            (0, 400, 13), (3, 12, 600)):
+        for betas in ((1.0, 2.0, 2.0, 2.0), (0.5, 6.25, 1.25, 3.5)):
+            kw = dict(nof_rb=nof_rb, start_symbol_index=0, nof_symbols=14,
+                      dmrs_symbols=dmrs_symbols, nof_layers=layers, qm=qm,
+                      target_code_rate=rate, tbs=tbs,
+                      sum_nof_cb_size=seg.nof_cb * seg.nof_bits_per_cb,
+                      nof_harq_ack_bits=ack, nof_csi_part1_bits=csi1, nof_csi_part2_bits=csi2,
+                      alpha_scaling=betas[0], beta_offset_harq_ack=betas[1],
+                      beta_offset_csi_part1=betas[2], beta_offset_csi_part2=betas[3])
+            assert dataclasses.asdict(ulsch_info.get_ulsch_information(**kw)) == \
+                dataclasses.asdict(jax_ulsch_info.get_ulsch_information(**kw)), kw
+
+
+def test_polar_code_sets_equal():
+    """N, the information, frozen and parity-check sets over a sweep of
+    (K, E, n_max, ibil): downlink and uplink, puncturing, shortening and
+    repetition, with and without parity-check bits."""
+    for n in range(5, 11):
+        np.testing.assert_array_equal(polar_code.blk_interleaver(n),
+                                      jax_polar_code.blk_interleaver(n))
+    np.testing.assert_array_equal(polar_code.SUBBLOCK_PATTERN, jax_polar_code.SUBBLOCK_PATTERN)
+    cases = [(k, e, 10, True) for k in (18, 20, 25, 31, 40, 64, 100, 211, 500, 1000)
+             for e in (k + 30, 2 * k + 7, 4 * k, 8 * k + 3, 2000) if k + 3 < e <= 8192]
+    cases += [(k, e, 9, ibil) for k in (36, 56, 100, 164) for e in (108, 216, 432, 864)
+              for ibil in (False, True) if k < e]
+    for k, e, n_max, ibil in cases:
+        a = polar_code.PolarCode(K=k, E=e, n_max=n_max, ibil=ibil)
+        b = jax_polar_code.PolarCode(K=k, E=e, n_max=n_max, ibil=ibil)
+        assert (a.n, a.N, a.n_pc, a.n_wm_pc) == (b.n, b.N, b.n_pc, b.n_wm_pc), (k, e)
+        for name in ("k_set", "frozen_mask", "pc_set"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+
+
+def test_polar_data_file_equal():
+    """The port reads its own copy of the polar mother-code tables."""
+    ours = REPO / "srsran_projectvtlmo_tpu_torch" / "data" / "polar_tables.npz"
+    assert polar_code._DATA == ours
+    _data_files_equal(ours, REPO / "srsran_projectvtlmo_tpu" / "data" / "polar_tables.npz")

@@ -165,15 +165,38 @@ def test_harq_combining_matches_jax():
 
 
 def test_from_grid_rejects_wrong_shape_and_defers_other_settings():
+    """Every setting of the JAX configuration builds and runs; only the
+    combinations the JAX program asserts against raise, with its reason."""
     _, tcfg = _configs(nof_layers=2)
     rx = build_pusch_rx_from_grid(tcfg, device="cpu")
     with pytest.raises(ValueError):
         rx(torch.zeros((1, 3, 14, tcfg.nof_subc, 2)))
-    for kw in (dict(nof_harq_ack_bits=2), dict(hop_symbol=7, second_hop_prb=4),
-               dict(dmrs_config_type=2), dict(dynamic_params=True), dict(equalizer="zf"),
-               dict(decode_sch=False)):
-        with pytest.raises(NotImplementedError):
-            build_pusch_rx_slot(_configs(**kw)[1], device="cpu")
+    settings = (dict(nof_harq_ack_bits=2), dict(nof_csi_part1_bits=5, nof_csi_part2_bits=12),
+                dict(nof_layers=1, hop_symbol=7, second_hop_prb=4, dmrs_symbols=(2, 11)),
+                dict(dmrs_config_type=2),
+                dict(equalizer="zf"), dict(nof_csi_part1_bits=3, decode_sch=False))
+    for kw in settings:
+        _, cfg = _configs(**{"nof_layers": 2, **kw})
+        out = build_pusch_rx_from_grid(cfg, device="cpu")(
+            torch.zeros((1, 4, 14, cfg.nof_subc, 2)))
+        assert ("tb_crc_ok" in out) == cfg.decode_sch and ("codeword_llr" in out) != cfg.decode_sch
+    _, dyn = _configs(nof_layers=2, dynamic_params=True)
+    with pytest.raises(ValueError, match="dynamic_params programs take"):
+        build_pusch_rx_from_grid(dyn, device="cpu")(torch.zeros((1, 4, 14, dyn.nof_subc, 2)))
+    _, dyn_uci = _configs(nof_layers=2, dynamic_params=True, nof_harq_ack_bits=2)
+    with pytest.raises(ValueError, match="dyn_uci_fix"):
+        build_pusch_rx_from_grid(dyn_uci, device="cpu")(
+            torch.zeros((1, 4, 14, dyn.nof_subc, 2)), None,
+            torch.zeros((1, 2, 6 * 24, 2)), torch.ones((1, dyn.nof_codeword_bits)))
+    for kw, why in ((dict(hop_symbol=7, second_hop_prb=4), "for 1 layer"),
+                    (dict(nof_layers=1, hop_symbol=7), "needs second_hop_prb"),
+                    (dict(nof_layers=1, hop_symbol=7, second_hop_prb=4, dmrs_config_type=2),
+                     "type 2"),
+                    (dict(decode_sch=False), "phase A"),
+                    (dict(decode_sch=False, nof_csi_part1_bits=3, nof_csi_part2_bits=4),
+                     "phase A")):
+        with pytest.raises(ValueError, match=why):
+            build_pusch_rx_slot(_configs(**{"nof_layers": 2, **kw})[1], device="cpu")
 
 
 def _fixture_tool():

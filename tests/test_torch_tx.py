@@ -197,11 +197,24 @@ def test_ulsch_tx_matches_jax(nof_layers, dmrs):
 
 
 def test_ulsch_tx_rejects_deferred_settings():
+    """UCI fields, hopping and DM-RS type 2 now build and transmit; a
+    hopping configuration without its second hop's PRB, a missing UCI payload
+    and a wrong TB shape raise."""
     base = dict(nof_rb=24, modulation=Modulation.QAM64, target_code_rate=0.6, dft_size=512)
-    for kw in (dict(nof_harq_ack_bits=2), dict(nof_csi_part1_bits=5),
-               dict(hop_symbol=7, second_hop_prb=4), dict(dmrs_config_type=2)):
-        with pytest.raises(NotImplementedError):
-            build_ulsch_tx_slot(PuschRxConfig(**port_kw(base), **kw), device="cpu")
+    tb = torch.zeros((1, PuschRxConfig(**port_kw(base)).tbs), dtype=torch.uint8)
+    for kw, payloads in ((dict(nof_harq_ack_bits=2), dict(ack_bits=torch.ones((1, 2)))),
+                         (dict(nof_csi_part1_bits=5), dict(csi1_bits=torch.ones((1, 5)))),
+                         (dict(hop_symbol=7, second_hop_prb=4), {}),
+                         (dict(dmrs_config_type=2), {})):
+        cfg = PuschRxConfig(**port_kw(base), **kw)
+        grid, samples = build_ulsch_tx_slot(cfg, device="cpu")(
+            torch.zeros((1, cfg.tbs), dtype=torch.uint8), **payloads)
+        assert grid.shape == (1, 14, cfg.nof_subc, 2) and bool(torch.isfinite(samples).all())
+    with pytest.raises(ValueError, match="second_hop_prb"):
+        build_ulsch_tx_slot(PuschRxConfig(**port_kw(base), hop_symbol=7), device="cpu")
+    with pytest.raises(ValueError, match="ack payload"):
+        build_ulsch_tx_slot(PuschRxConfig(**port_kw(base), nof_harq_ack_bits=2),
+                            device="cpu")(tb)
     tx = build_ulsch_tx_slot(PuschRxConfig(**port_kw(base)), device="cpu")
     with pytest.raises(ValueError):
         tx(torch.zeros((1, 10), dtype=torch.uint8))
