@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's UL-SCH transmitter and PUSCH receiver on an
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver and uplink
+FAPI entry point (`UpperPhy.process_ul_slot`) on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -57,7 +57,26 @@ non-zero:
 13. a torch.profiler profile of the UCI slice at batch 32 (random REs, 6
    iterations, early stop): device time and kernel launches per call, the
    time and launches inside `pusch_rx.uci`, the launches of each UCI
-   field's decoder, and the back-to-back time per call.
+   field's decoder, and the back-to-back time per call;
+14. (a) the FAPI entry point: `UpperPhy(cell, device="cuda").process_ul_slot`
+   on a 273-PRB, DFT-4096, 4-rx-port cell with one north-star PUSCH PDU,
+   the port's Tx slot mixed onto the ports with AWGN and OFDM-modulated;
+   the CRC indication passes, the RxData bits equal the TB, and the call
+   launched the early-stop kernel and never the fixed mode;
+15. (b) HARQ through the arena: the first transmission of a TB at the first
+   noise level (of `HARQ_NOISE`) where it fails, then its retransmission
+   (new_data=False, rv 3) at that level, which decodes to the TB and
+   releases its reservation, while the retransmission alone does not decode;
+16. (c) a mixed slot: a 13-symbol PUSCH PDU narrower than the carrier with a
+   2-bit ACK, a 6-bit CSI part 1 and `PART2_MAP` (two-phase), PUCCH
+   formats 0 (2 bits + SR), 1 (hopping) and 2 (19 bits, polar), SRS on
+   symbol 13 and a 4-port PRACH occasion in a `PrachBuffer`; every
+   indication must equal what was sent, the SRS channel within `SRS_TOL` of
+   the known gains;
+17. (d) for slots (a) and (c) at batch 1, one JSON line each with the card's
+   name and power limit: host ms per `process_ul_slot` (median of 12),
+   device kernel time, kernel and LDPC launches, stream synchronisations and
+   the host ms of the per-PDU sequence generation per slot (torch.profiler).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -762,8 +781,8 @@ def phase_options(fx, gen) -> dict:
 def device_events(prof):
     """(kernels, annotation spans) among a profile's device events."""
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return ([e for e in events if not e.name.startswith("pusch_rx.")],
-            [e for e in events if e.name.startswith("pusch_rx.")])
+    span = lambda e: e.name.startswith(("pusch_rx.", "upper_phy."))
+    return [e for e in events if not span(e)], [e for e in events if span(e)]
 
 
 def phase_uci_profile(gen):
@@ -839,6 +858,402 @@ def phase_uci_profile(gen):
                           "host_ms_under_profiler": host, "device": dev}))
 
 
+# ------------------------------------------------------- the FAPI entry point --
+
+#: The FAPI phases drive `UpperPhy.process_ul_slot` on the north-star carrier
+#: with 4 rx ports, at this slot of the frame (even: the OFDM phase of slot 0).
+FAPI_SLOT = 4
+#: Noise levels (per real component, against 0.5 of signal power per port)
+#: tried in turn for the HARQ phase's first transmission, from one that
+#: decodes to ones that do not; the retransmission goes out at the first
+#: level where the first transmission failed.
+HARQ_NOISE = tuple(0.018 * 1.04 ** k for k in range(40))
+#: The mixed slot's layout on the 273-PRB carrier: PUSCH on PRB 0-199 over
+#: symbols 0-12; PUCCH F0 on PRB 200 (symbols 12-13), F1 hopping from PRB 201
+#: to PRB 272, F2 on PRB 202-205 (symbols 12-13); SRS on PRB 208-271 of
+#: symbol 13; a 4-port long-format PRACH occasion in a `PrachBuffer`.
+MIXED_PUSCH_PRB, F0_PRB, F1_PRBS, F2_PRB, SRS_PRB = 200, 200, (201, NS_PRB - 1), 202, 208
+CSI1_VALUE = 5  # selects a 24-bit CSI part 2 in PART2_MAP
+PRACH_PREAMBLE, PRACH_DELAY = 11, 4.0
+#: Bound on |SRS estimate - the port gain it sounds| over the sounded band,
+#: relative to the smallest gain: 0.005 noise per component against unit
+#: pilots averaged by the estimator's smoothing.
+SRS_TOL = 0.05
+
+
+def fapi_cell():
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig
+
+    return CellConfig(nof_rb=NS_PRB, dft_size=NS_DFT, numerology=1, nof_rx_ports=4)
+
+
+def northstar_pdu(**kw):
+    """The north-star PUSCH PDU: 273 PRB, QAM256 R=948/1024, 2 layers."""
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import PuschPdu
+    from srsran_projectvtlmo_tpu_torch.ops.modulation import Modulation
+
+    base = dict(rnti=0x4601, rb_start=0, rb_size=NS_PRB, modulation=Modulation.QAM256,
+                target_code_rate=948.0 / 1024.0, nof_layers=2, dmrs_symbols=(2,), n_id=1)
+    return PuschPdu(**{**base, **kw})
+
+
+def pdu_tx_cfg(pdu, slot: int):
+    """The UE transmitter's configuration of one PUSCH PDU."""
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import PuschRxConfig
+
+    return PuschRxConfig(
+        nof_rb=pdu.rb_size, modulation=pdu.modulation, target_code_rate=pdu.target_code_rate,
+        nof_layers=pdu.nof_layers, nof_ofdm_symbols=pdu.nof_symbols,
+        dmrs_symbols=tuple(s - pdu.start_symbol for s in pdu.dmrs_symbols), rv=pdu.rv,
+        rnti=pdu.rnti, n_id=pdu.n_id, start_symbol=pdu.start_symbol, rb_start=pdu.rb_start,
+        nof_rx_ports=4, dft_size=NS_DFT, numerology=1, slot=slot,
+        nof_harq_ack_bits=pdu.nof_harq_ack_bits, nof_csi_part1_bits=pdu.nof_csi_part1_bits)
+
+
+def pusch_layers(pdu, slot: int, tb, uci=None, csi2=None) -> torch.Tensor:
+    """The port's transmitter for one PDU: (L, nsym, S) complex layer grids."""
+    from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    tx = build_ulsch_tx_slot(pdu_tx_cfg(pdu, slot), "cuda", nof_csi_part2_bits=csi2)
+    grid = to_cplx(tx(tb, **(uci or {}))[0])[0]
+    return grid.reshape(pdu.nof_layers, pdu.nof_symbols, -1)
+
+
+def carrier_samples(carrier: torch.Tensor, noise: float, gen) -> np.ndarray:
+    """(4, 14, S) complex carrier on the card -> AWGN -> the port's OFDM
+    modulator -> (4, nsamples, 2) float32 samples on the host, as a FAPI
+    caller hands them over."""
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import from_cplx
+
+    awgn = torch.complex(torch.randn(carrier.shape, generator=gen, device="cuda"),
+                         torch.randn(carrier.shape, generator=gen, device="cuda"))
+    samples = ofdm.ofdm_modulate(from_cplx(carrier + noise * awgn), NS_DFT, 1, FAPI_SLOT % 2)
+    return samples.cpu().numpy()
+
+
+def add_pusch(carrier: torch.Tensor, pdu, layers: torch.Tensor) -> None:
+    """Mix (L, nsym, S) layer grids onto the 4 ports with `slot_samples`'
+    fixed matrix, at the PDU's symbols and PRBs."""
+    nl = layers.shape[0]
+    p = torch.arange(4, device="cuda", dtype=torch.float32)[:, None]
+    l = torch.arange(nl, device="cuda", dtype=torch.float32)[None, :]
+    mix = torch.polar(torch.full((4, nl), 0.5, device="cuda"), -2.0 * np.pi * p * l / 4.0)
+    k0, s0 = pdu.rb_start * 12, pdu.start_symbol
+    carrier[:, s0:s0 + pdu.nof_symbols, k0:k0 + layers.shape[-1]] += torch.einsum(
+        "pl,lsk->psk", mix, layers)
+
+
+def indications(inds, cls: str) -> list:
+    return [i for i in inds if type(i).__name__ == cls]
+
+
+def check_pusch(inds, tb: torch.Tensor, label: str) -> None:
+    crc = indications(inds, "CrcIndication")
+    rxd = indications(inds, "RxDataIndication")
+    bits = rxd[0].tb_bits if rxd else None
+    errors = int((bits != tb.cpu().numpy()[0]).sum()) if bits is not None else None
+    print(f"{label}: tb_crc_ok {[c.tb_crc_ok for c in crc]}, TB bit errors {errors}")
+    if len(crc) != 1 or not crc[0].tb_crc_ok or errors != 0:
+        raise SystemExit(f"{label}: the PUSCH PDU did not decode to the TB sent")
+
+
+def phase_fapi_northstar(gen, smi: str) -> dict:
+    """(a) The north-star PUSCH PDU through `UpperPhy.process_ul_slot`."""
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import ExpertPhyConfig, UpperPhy
+
+    phy = UpperPhy(fapi_cell(), ExpertPhyConfig(pusch_decoder_max_iterations=6), device="cuda")
+    pdu = northstar_pdu()
+    tb = random_tb(pdu_tx_cfg(pdu, FAPI_SLOT), 1, gen)
+    carrier = torch.zeros((4, 14, NS_PRB * 12), dtype=torch.complex64, device="cuda")
+    add_pusch(carrier, pdu, pusch_layers(pdu, FAPI_SLOT, tb))
+    samples = carrier_samples(carrier, 0.005, gen)
+    request = UlTtiRequest(slot=FAPI_SLOT, pusch=(pdu,))
+    phy.process_ul_slot(request, samples)  # builds the receiver, moves its tables
+    label = "FAPI north-star slot (process_ul_slot, 273 PRB QAM256 4x2)"
+    inds, launches = count_launches(lambda: phy.process_ul_slot(request, samples), True, label)
+    check_pusch(inds, tb, label + f", kernel launches {launches}")
+    fapi_timing(phy, request, samples, None, "northstar", smi)
+    return {"fapi_northstar": launches}
+
+
+def phase_fapi_harq(gen) -> dict:
+    """(b) A TB that fails at its first transmission, then its retransmission
+    (new_data=False, rv 3) combined through the HARQ arena."""
+    import dataclasses
+
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    phy = UpperPhy(fapi_cell(), device="cuda")
+    first = northstar_pdu(harq_id=5)
+    again = dataclasses.replace(first, new_data=False, rv=3)
+    tb = random_tb(pdu_tx_cfg(first, FAPI_SLOT), 1, gen)
+    slots = {}
+    for pdu in (first, again):
+        carrier = torch.zeros((4, 14, NS_PRB * 12), dtype=torch.complex64, device="cuda")
+        add_pusch(carrier, pdu, pusch_layers(pdu, FAPI_SLOT, tb))
+        slots[pdu.rv] = carrier
+    tried = []
+    for noise in HARQ_NOISE:
+        inds = phy.process_ul_slot(UlTtiRequest(slot=FAPI_SLOT, pusch=(first,)),
+                                   carrier_samples(slots[0], noise, gen))
+        tried.append(round(noise, 5))
+        if not indications(inds, "CrcIndication")[0].tb_crc_ok:
+            break
+    else:
+        raise SystemExit(f"HARQ: the first transmission decoded at every noise level {tried}")
+    if phy.harq_pool.nof_reserved != 1:
+        raise SystemExit(f"HARQ: {phy.harq_pool.nof_reserved} reservations after a failed TB")
+    retx = carrier_samples(slots[3], noise, gen)
+    alone = UpperPhy(fapi_cell(), device="cuda").process_ul_slot(
+        UlTtiRequest(slot=FAPI_SLOT, pusch=(again,)), retx)
+    label = (f"HARQ retransmission (rv 3, new_data=False) at noise {noise:.5f}, after the "
+             f"first transmission failed (noise levels tried {tried})")
+    inds, launches = count_launches(lambda: phy.process_ul_slot(
+        UlTtiRequest(slot=FAPI_SLOT, pusch=(again,)), retx), True, label)
+    check_pusch(inds, tb, label + f"; kernel launches {launches}")
+    alone_ok = indications(alone, "CrcIndication")[0].tb_crc_ok
+    print(f"the retransmission alone, without the arena's history: tb_crc_ok {alone_ok}; "
+          f"reservations after the pass {phy.harq_pool.nof_reserved}")
+    if alone_ok or phy.harq_pool.nof_reserved != 0:
+        raise SystemExit("HARQ: the retransmission decoded without its history, or the "
+                         "reservation was not released after the pass")
+    return {"fapi_harq_retransmission": launches}
+
+
+def pucch_cyclic_shift(n_id: int, slot: int, symbol: int) -> int:
+    """n_cs(n_s, l) of TS 38.211 Section 6.3.2.2.2: eight Gold bits from
+    c_init = n_id at offset 8 (14 n_s + l).  The PUCCH generators below use
+    only the sequence modules (`low_papr`, `prg`, `uci`), none of the
+    detector's own tables, so the card check holds those tables too."""
+    from srsran_projectvtlmo_tpu_torch.ops import prg
+
+    off = 8 * (14 * slot + symbol)
+    return int(sum(int(b) << i for i, b in enumerate(prg.gold_sequence_bits(n_id, off + 8)[off:])))
+
+
+def pucch_base(cfg, shift: int, symbol: int) -> np.ndarray:
+    """The 12-RE low-PAPR sequence of one PUCCH symbol at cyclic shift
+    (m0 + shift + n_cs) mod 12."""
+    from srsran_projectvtlmo_tpu_torch.ops import low_papr
+
+    u, v = low_papr.pucch_group_sequence(cfg.n_id)
+    ncs = pucch_cyclic_shift(cfg.n_id, cfg.slot, cfg.start_symbol + symbol)
+    return low_papr.low_papr_sequence(
+        u, v, 2 * np.pi * ((cfg.initial_cyclic_shift + shift + ncs) % 12) / 12, 12)
+
+
+def pucch_res_f0(cfg, bits) -> np.ndarray:
+    """(S, 12) PUCCH format-0 REs for 2 HARQ bits (Gray-mapped cyclic shift,
+    TS 38.213 Table 9.2.3-4)."""
+    mcs = (0, 3, 9, 6)[2 * bits[0] + bits[1]]
+    return np.stack([pucch_base(cfg, mcs, s) for s in range(cfg.nof_symbols)])
+
+
+#: TS 38.211 Table 6.3.2.4.1-2, phi(m) of OCC index 1 for the hop lengths
+#: the mixed slot uses: w(m) = exp(2 pi j phi(m) / N).
+OCC1_PHI = {3: (0, 1, 2), 4: (0, 2, 0, 2)}
+
+
+def pucch_res_f1(cfg, bits) -> np.ndarray:
+    """(S, 12) PUCCH format-1 REs for 2 HARQ bits (QPSK d, TS 38.211
+    Section 6.3.2.4): DM-RS on the even symbols and data on the odd ones,
+    each hop (floor(S/2) symbols first) spread by its own OCC."""
+    assert cfg.time_domain_occ == 1 and cfg.intra_slot_hopping
+    d = ((1 - 2 * bits[0]) + 1j * (1 - 2 * bits[1])) / np.sqrt(2)
+    res = np.zeros((cfg.nof_symbols, 12), np.complex64)
+    half = cfg.nof_symbols // 2
+    for a, b in ((0, half), (half, cfg.nof_symbols)):
+        for parity, value in ((0, 1.0), (1, d)):
+            syms = [s for s in range(a, b) if s % 2 == parity]
+            phi = OCC1_PHI[len(syms)]
+            for m, s in enumerate(syms):
+                res[s] = value * np.exp(2j * np.pi * phi[m] / len(syms)) * pucch_base(cfg, 0, s)
+    return res
+
+
+def pucch_res_f2(cfg, msg) -> np.ndarray:
+    """(S, 12 * PRB) PUCCH format-2 REs: UCI-encoded, scrambled QPSK on the
+    REs other than 3m + 1 of each RB, and the DM-RS of TS 38.211 Section
+    6.4.1.3.2 there, indexed from the allocation's first RB."""
+    from srsran_projectvtlmo_tpu_torch.ops import prg, uci
+
+    prb, nsym = cfg.nof_prb, cfg.nof_symbols
+    e = 16 * prb * nsym
+    scr = uci.uci_encode(msg, e, bits_per_symbol=2) ^ prg.gold_sequence_bits(
+        ((cfg.rnti << 15) + cfg.n_id) & 0x7FFFFFFF, e)
+    qpsk = ((1 - 2 * scr[0::2].astype(np.float64)) + 1j * (1 - 2 * scr[1::2])) / np.sqrt(2)
+    dmrs_re = np.zeros(12 * prb, bool)
+    dmrs_re[1::3] = True
+    res = np.zeros((nsym, 12 * prb), np.complex64)
+    res[:, ~dmrs_re] = qpsk.reshape(nsym, 8 * prb)
+    for s in range(nsym):
+        n_id0 = cfg.n_id0
+        cinit = ((1 << 17) * (14 * cfg.slot + cfg.start_symbol + s + 1) * (2 * n_id0 + 1)
+                 + 2 * n_id0) % (1 << 31)
+        c = 1 - 2 * prg.gold_sequence_bits(cinit, 8 * prb).astype(np.float64)
+        res[s, dmrs_re] = (c[0::2] + 1j * c[1::2]) / np.sqrt(2)
+    return res
+
+
+def prach_occasion(cfg, gains: np.ndarray, gen_np) -> np.ndarray:
+    """(P, L, 2) received long-format occasion: the preamble delayed by
+    PRACH_DELAY samples through each port's gain, at 3 dB SNR."""
+    from srsran_projectvtlmo_tpu_torch.ops import prach
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import np_to_pair
+
+    n = np.arange(cfg.sequence_length)
+    freq = prach.prach_generate(cfg, PRACH_PREAMBLE) * np.exp(
+        -2j * np.pi * n * PRACH_DELAY / cfg.sequence_length)
+    rx = 10 ** (3 / 20) * gains[:, None] * freq[None]
+    rx = rx + (gen_np.normal(size=rx.shape) + 1j * gen_np.normal(size=rx.shape)) / np.sqrt(2)
+    return np_to_pair(rx.astype(np.complex64))
+
+
+def phase_fapi_mixed(gen, smi: str) -> dict:
+    """(c) One slot with every UL PDU kind; every indication must be what
+    was sent."""
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import PrachPdu, PucchPdu, SrsPdu, UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.ops import prach, srs
+    from srsran_projectvtlmo_tpu_torch.phy import pucch
+    from srsran_projectvtlmo_tpu_torch.phy.prach_buffer import PrachBuffer, PrachBufferFormat
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    rng = np.random.default_rng(5)
+    slot, cell = FAPI_SLOT, fapi_cell()
+    pusch_pdu = northstar_pdu(rb_size=MIXED_PUSCH_PRB, nof_symbols=13, nof_harq_ack_bits=2,
+                              nof_csi_part1_bits=6, part2_size_map=PART2_MAP)
+    csi2 = PART2_MAP[CSI1_VALUE]
+    tb = random_tb(pdu_tx_cfg(pusch_pdu, slot), 1, gen)
+    sent = {"ack_bits": np.array([1, 0], np.uint8),
+            "csi1_bits": np.array([(CSI1_VALUE >> (5 - i)) & 1 for i in range(6)], np.uint8),
+            "csi2_bits": rng.integers(0, 2, csi2).astype(np.uint8),
+            "f0": (1, 1), "f1": (0, 1), "f2": rng.integers(0, 2, 19).astype(np.uint8)}
+    uci = {k: torch.as_tensor(sent[k][None], device="cuda")
+           for k in ("ack_bits", "csi1_bits", "csi2_bits")}
+    carrier = torch.zeros((4, 14, NS_PRB * 12), dtype=torch.complex64, device="cuda")
+    add_pusch(carrier, pusch_pdu, pusch_layers(pusch_pdu, slot, tb, uci, csi2))
+
+    pdus = {
+        "f0": PucchPdu(format=0, rnti=0x51, prb_start=F0_PRB, nof_prb=1, start_symbol=12,
+                       nof_symbols=2, initial_cyclic_shift=3, nof_harq_bits=2,
+                       sr_opportunity=True, n_id=cell.phys_cell_id),
+        "f1": PucchPdu(format=1, rnti=0x52, prb_start=F1_PRBS[0], nof_prb=1, start_symbol=0,
+                       nof_symbols=14, initial_cyclic_shift=2, time_domain_occ=1,
+                       nof_harq_bits=2, n_id=cell.phys_cell_id, second_hop_prb=F1_PRBS[1]),
+        "f2": PucchPdu(format=2, rnti=0x53, prb_start=F2_PRB, nof_prb=4, start_symbol=12,
+                       nof_symbols=2, nof_uci_bits=19, n_id=9, n_id0=11)}
+    f0 = pucch.PucchFormat0Config(n_id=cell.phys_cell_id, slot=slot, start_symbol=12,
+                                  nof_symbols=2, initial_cyclic_shift=3, nof_harq_bits=2,
+                                  sr_opportunity=True)
+    f1 = pucch.PucchFormat1Config(n_id=cell.phys_cell_id, slot=slot, start_symbol=0,
+                                  nof_symbols=14, initial_cyclic_shift=2, time_domain_occ=1,
+                                  nof_harq_bits=2, intra_slot_hopping=True)
+    f2 = pucch.PucchFormat2Config(n_id=9, n_id0=11, rnti=0x53, slot=slot, start_symbol=12,
+                                  nof_symbols=2, nof_prb=4, nof_uci_bits=19)
+    srs_pdu = SrsPdu(rnti=0x54, nof_rb=NS_PRB - 1 - SRS_PRB, prb_start=SRS_PRB, comb_size=2,
+                     start_symbol=13, sequence_id=5)
+    scfg = srs.SrsConfig(nof_rb=srs_pdu.nof_rb, comb_size=2, start_symbol=13, sequence_id=5)
+    srs_res = np.zeros((1, scfg.nof_rb * 12), np.complex64)
+    srs_res[:, srs.srs_subcarriers(scfg)] = srs.srs_sequence(scfg)
+    gains = (rng.normal(size=4) + 1j * rng.normal(size=4)) / np.sqrt(2) + 0.5
+    res = np.zeros((4, 14, NS_PRB * 12), np.complex64)
+    g = gains[:, None, None]
+    res[:, 12:14, F0_PRB * 12:(F0_PRB + 1) * 12] = g * pucch_res_f0(f0, sent["f0"])
+    f1_res = pucch_res_f1(f1, sent["f1"])
+    res[:, 0:7, F1_PRBS[0] * 12:(F1_PRBS[0] + 1) * 12] = g * f1_res[:7]
+    res[:, 7:14, F1_PRBS[1] * 12:(F1_PRBS[1] + 1) * 12] = g * f1_res[7:]
+    res[:, 12:14, F2_PRB * 12:(F2_PRB + 4) * 12] = g * pucch_res_f2(f2, sent["f2"])
+    res[:, 13:14, SRS_PRB * 12:(SRS_PRB + scfg.nof_rb) * 12] = g * srs_res
+    carrier += torch.as_tensor(res, device="cuda")
+    samples = carrier_samples(carrier, 0.005, gen)
+
+    pcfg = prach.PrachDetectorConfig(sequence_length=prach.LONG, root_sequence_index=22,
+                                     zero_correlation_zone=11)
+    buf = PrachBuffer(PrachBufferFormat(sequence_length=prach.LONG, nof_ports=4), 0)
+    buf.set_symbol(0, 0, prach_occasion(pcfg, gains, rng))
+    request = UlTtiRequest(slot=slot, pusch=(pusch_pdu,), pucch=tuple(pdus.values()),
+                           srs=(srs_pdu,), prach=(PrachPdu(root_sequence_index=22,
+                                                           zero_correlation_zone=11),))
+    phy = UpperPhy(cell, device="cuda")
+    phy.process_ul_slot(request, samples, buf)  # builds the receivers, moves their tables
+    label = "FAPI mixed slot"
+    inds, launches = count_launches(lambda: phy.process_ul_slot(request, samples, buf), True,
+                                    label)
+
+    names = [type(i).__name__ for i in inds]
+    want = ["CrcIndication", "RxDataIndication"] + ["UciIndication"] * 4 + \
+        ["SrsIndication", "RachIndication"]
+    if names != want:
+        raise SystemExit(f"{label}: indications {names}, expected {want}")
+    check_pusch(inds, tb, f"{label}: PUSCH {MIXED_PUSCH_PRB} PRB x 13 symbols QAM256 4x2 "
+                          f"with ACK 2, CSI 6 + {csi2} (two-phase)")
+    pusch_uci, u0, u1, u2 = inds[2:6]
+    srs_ind, rach = inds[6], inds[7]
+    checks = {
+        "PUSCH ACK": pusch_uci.valid and np.array_equal(pusch_uci.harq_bits, sent["ack_bits"]),
+        "PUSCH CSI 1": pusch_uci.csi1_valid and np.array_equal(pusch_uci.csi1_bits,
+                                                              sent["csi1_bits"]),
+        "PUSCH CSI 2": pusch_uci.csi2_valid and np.array_equal(pusch_uci.csi2_bits,
+                                                              sent["csi2_bits"]),
+        "PUCCH F0 (2 bits + SR)": u0.valid and u0.sr_detected and tuple(u0.harq_bits) == sent["f0"],
+        "PUCCH F1 (hopping)": u1.valid and tuple(u1.harq_bits) == sent["f1"],
+        "PUCCH F2 (19 bits)": u2.valid and np.array_equal(u2.uci_bits, sent["f2"]),
+    }
+    srs_err = float(np.abs(srs_ind.channel - gains[:, None]).max() / np.abs(gains).min())
+    checks[f"SRS channel ({srs_ind.channel.shape}), max error {srs_err:.4f} of the smallest "
+           f"gain (bound {SRS_TOL})"] = srs_err <= SRS_TOL
+    best = max(rach.preambles, key=lambda d: d[2]) if rach.preambles else (None, None, None)
+    checks[f"PRACH preamble {best[0]} TA {best[1]} samples (sent {PRACH_PREAMBLE}, "
+           f"{PRACH_DELAY})"] = best[0] == PRACH_PREAMBLE and abs(best[1] - PRACH_DELAY) <= 1.0
+    for name, ok in checks.items():
+        print(f"{label}: {name}: {'ok' if ok else 'WRONG'}")
+    if not all(checks.values()):
+        raise SystemExit(f"{label}: an indication differs from what was sent")
+    print(f"{label}: kernel launches {launches}")
+    fapi_timing(phy, request, samples, buf, "mixed", smi)
+    return {"fapi_mixed": launches}
+
+
+def fapi_timing(phy, request, samples, prach_samples, label: str, smi: str) -> None:
+    """(d) Host ms per `process_ul_slot` (median of 12 calls, each ending in
+    the indications on the host), then `torch.profiler` over 3 calls: device
+    kernel time and launches per slot, the LDPC kernel's launches and time,
+    stream synchronisations per slot, and the host time inside the per-PDU
+    sequence generation (the `upper_phy.pusch_sequences` span)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = lambda: phy.process_ul_slot(request, samples, prach_samples)
+    host_ms = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        call()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+    kernels, _ = device_events(prof)
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    seq_ms = sum(e.time_range.elapsed_us() for e in cpu
+                 if e.name == "upper_phy.pusch_sequences") / 1e3 / calls
+    ldpc = [e for e in kernels if "ldpc_decode_kernel" in e.name]
+    print(json.dumps({
+        "profile": f"upper_phy_process_ul_slot_{label}_batch1",
+        "host_ms_per_slot": float(np.median(host_ms)), "host_ms_calls": host_ms,
+        "device_kernel_ms_per_slot": (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                                      / calls if kernels else "not measured"),
+        "kernels_per_slot": len(kernels) / calls if kernels else "not measured",
+        "ldpc_launches_per_slot": len(ldpc) / calls if kernels else "not measured",
+        "ldpc_kernel_ms_per_slot": sum(e.time_range.elapsed_us() for e in ldpc) / 1e3 / calls,
+        "stream_syncs_per_slot": sum(e.name == "cudaStreamSynchronize" for e in cpu) / calls,
+        "sequence_host_ms_per_slot": seq_ms,
+        "device": torch.cuda.get_device_name(0), "card": smi}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -873,6 +1288,9 @@ def main() -> int:
     new_paths = {**phase_uci(gen), **phase_two_phase(gen), **phase_options(fx, gen)}
     print(json.dumps({"ldpc_decode_es_launches_per_call": new_paths}))
     phase_uci_profile(gen)
+    fapi = {**phase_fapi_northstar(gen, smi), **phase_fapi_harq(gen),
+            **phase_fapi_mixed(gen, smi)}
+    print(json.dumps({"fapi_ldpc_decode_es_launches_per_call": fapi}))
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
             ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]

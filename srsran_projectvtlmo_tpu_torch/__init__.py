@@ -10,23 +10,31 @@ parity tests are plain array comparisons:
   * bits as uint8.
 
 Layout (mirrors the JAX package):
+  fapi/          FAPI-shaped PDUs and indications, their validators (host)
   ran/           LDPC parameters, modulation schemes, SCH segmentation, UL-SCH
-                 UCI budgets (host)
-  utils/         int8 LLR semantics, complex pairs
-  ops/           CRC, PRG, DM-RS, OFDM, estimation, equalization, demapping, EVM,
-                 UCI placement, short-block codes, UCI encode/decode
+                 UCI budgets, PRACH formats, cyclic shifts and configurations
+                 (host)
+  utils/         int8 LLR semantics, complex pairs, device-cached tables
+  ops/           CRC, PRG, DM-RS, OFDM (and the PRACH occasion), estimation,
+                 equalization, demapping, EVM, UCI placement, short-block codes,
+                 UCI encode/decode, low-PAPR sequences, PRACH, SRS
   ops/ldpc/      graphs, rate matching, the encoder, the plain decoder and its
                  CUDA kernel
   ops/polar/     polar code construction, allocation, encoder, rate matching and
                  the SSC decoder
   models/        SCH configuration, the UL-SCH transmitter, the PUSCH receive slot
-  phy/           the two-phase (CSI part 1 -> part 2) PUSCH UCI processor
+  phy/           the uplink FAPI entry point (`upper_phy.UpperPhy`), the HARQ
+                 arena, PUCCH formats 0/1/2, PRACH buffers, the two-phase
+                 (CSI part 1 -> part 2) PUSCH UCI processor, the realtime slot
+                 machinery, receiver warmup, error accounting and metrics
   csrc/          CUDA C++ sources, built with nvcc at first use
-  data/          base graphs, polar tables and the north-star test fixture
+  data/          base graphs, polar, low-PAPR and PRACH tables and the
+                 north-star test fixture
 
 This package imports torch and never jax, and nothing of the JAX package:
-it keeps its own copies of the host modules it needs (`ran/*`, `ops/prg`,
-`ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`) and of their data files.
+it keeps its own copies of the host modules it needs (`fapi/*`, `ran/*`,
+`ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`, `ops/low_papr`,
+`phy/error_handler`, `phy/metrics`) and of their data files.
 """
 
 __version__ = "0.1.0"

@@ -602,3 +602,9 @@ def build_pusch_rx_slot(cfg: PuschRxConfig, device="cuda"):
         return from_grid(grid, harq_buffer)
 
     return rx
+
+
+@functools.lru_cache(maxsize=None)
+def cached_pusch_rx(cfg: PuschRxConfig, device="cuda"):
+    """`build_pusch_rx_slot(cfg, device)`, built once per (cfg, device)."""
+    return build_pusch_rx_slot(cfg, device)

@@ -13,6 +13,8 @@ tests/integrationtests/phy/upper/channel_processors/pxsch_bler_test.cpp:332-458)
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -81,9 +83,11 @@ def _uci_field_encoder(nof_payload_bits: int, nof_enc_bits: int, qm: int):
 def build_ulsch_tx_slot(cfg: PuschRxConfig, device="cuda", *,
                         nof_csi_part2_bits: int | None = None):
     """fn(tb_bits (B, TBS) uint8, ack_bits=None, csi1_bits=None, csi2_bits=None)
-    on `device` -> (grid_pair (B[, L], 14, nsubc, 2), samples_pair (B[, L],
-    nsamples, 2)), float32; the layer axis is squeezed at 1 layer, as in the
-    JAX program.  Each configured UCI field needs its (B, K) payload bits;
+    on `device` -> (grid_pair (B[, L], nof_ofdm_symbols, nsubc, 2), samples_pair
+    (B[, L], nsamples, 2)), float32; the layer axis is squeezed at 1 layer, as
+    in the JAX program.  The samples are a whole slot, the allocation's
+    symbols from start_symbol (the JAX program modulates only 14-symbol
+    allocations).  Each configured UCI field needs its (B, K) payload bits;
     `nof_csi_part2_bits` overrides cfg's CSI part-2 size (a two-phase size
     bucket).  Runs on the card unless `device` names the CPU."""
     _check_scope(cfg)
@@ -119,6 +123,7 @@ def build_ulsch_tx_slot(cfg: PuschRxConfig, device="cuda", *,
     data_syms = torch.as_tensor(np.asarray(cfg.data_symbols, np.int64), device=dev)
     dmrs_syms = torch.as_tensor(np.asarray(cfg.dmrs_symbols, np.int64), device=dev)
     slot_in_subframe = cfg.slot % (1 << cfg.numerology)
+    short_alloc = cfg.start_symbol != 0 or cfg.nof_ofdm_symbols != ofdm_mod.SYMBOLS_PER_SLOT
 
     @torch.no_grad()
     def tx(tb_bits: torch.Tensor, ack_bits: torch.Tensor | None = None,
@@ -142,10 +147,22 @@ def build_ulsch_tx_slot(cfg: PuschRxConfig, device="cuda", *,
                                                    cfg.nof_subc)
         grid[:, :, dmrs_syms] = pilots
         grid_pair = from_cplx(grid)
-        samples = ofdm_mod.ofdm_modulate(grid_pair, cfg.dft_size, cfg.numerology,
+        slot_grid = grid_pair
+        if short_alloc:
+            # The allocation's symbols sit at start_symbol of a whole slot.
+            slot_grid = grid_pair.new_zeros((b, nlayers, ofdm_mod.SYMBOLS_PER_SLOT,
+                                             cfg.nof_subc, 2))
+            slot_grid[:, :, cfg.start_symbol:cfg.start_symbol + cfg.nof_ofdm_symbols] = grid_pair
+        samples = ofdm_mod.ofdm_modulate(slot_grid, cfg.dft_size, cfg.numerology,
                                          slot_in_subframe)
         if nlayers == 1:
             return grid_pair[:, 0], samples[:, 0]
         return grid_pair, samples
 
     return tx
+
+
+@functools.lru_cache(maxsize=None)
+def cached_ulsch_tx(cfg: PuschRxConfig, device="cuda"):
+    """`build_ulsch_tx_slot(cfg, device)`, built once per (cfg, device)."""
+    return build_ulsch_tx_slot(cfg, device)

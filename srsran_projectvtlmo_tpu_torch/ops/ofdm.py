@@ -1,4 +1,5 @@
-"""OFDM modulation / demodulation, TS 38.211 Section 5.3 (port of `srsran_projectvtlmo_tpu.ops.ofdm`).
+"""OFDM modulation / demodulation, TS 38.211 Section 5.3, and the PRACH
+occasion's (de)modulation (port of `srsran_projectvtlmo_tpu.ops.ofdm`).
 
 Real-pair I/O; the FFT is `torch.fft` (cuFFT on the card), as the JAX package
 left it to XLA.
@@ -109,3 +110,42 @@ def ofdm_demodulate(samples_pair: torch.Tensor, nsubc: int, dft_size: int, mu: i
     half = nsubc // 2
     grid = torch.cat([bins[..., dft_size - half:], bins[..., :nsubc - half]], dim=-1) * scale
     return from_cplx(grid, torch.bfloat16 if out_dtype == "bf16" else torch.float32)
+
+
+# ----------------------------------------------------------- PRACH demod ----
+
+def prach_window_samples(sequence_length: int, prach_scs_hz: float, sample_rate_hz: float) -> int:
+    """Samples per PRACH sequence repetition: fs / prach_scs."""
+    n = sample_rate_hz / prach_scs_hz
+    if abs(n - round(n)) >= 1e-6:
+        raise ValueError("sample rate must be a multiple of the PRACH SCS")
+    return int(round(n))
+
+
+def _prach_bins(sequence_length: int, freq_offset_subc: int, nwin: int) -> np.ndarray:
+    return (freq_offset_subc + np.arange(sequence_length)) % nwin
+
+
+def prach_demodulate(samples_pair: torch.Tensor, sequence_length: int, freq_offset_subc: int,
+                     prach_scs_hz: float, sample_rate_hz: float) -> torch.Tensor:
+    """(..., nwin, 2) one sequence-length window (CP already skipped, nwin =
+    fs / prach_scs) -> (..., sequence_length, 2) frequency samples, the first
+    occupied subcarrier `freq_offset_subc` bins above the window's DC.
+    reference: lib/phy/lower/modulation/ofdm_prach_demodulator_impl.cpp.
+    """
+    nwin = prach_window_samples(sequence_length, prach_scs_hz, sample_rate_hz)
+    bins = torch.fft.fft(to_cplx(samples_pair), dim=-1) / np.float32(np.sqrt(nwin))
+    idx = on_device(_prach_bins, sequence_length, freq_offset_subc, nwin,
+                    device=samples_pair.device)
+    return from_cplx(bins[..., idx])
+
+
+def prach_modulate(freq_pair: torch.Tensor, sequence_length: int, freq_offset_subc: int,
+                   prach_scs_hz: float, sample_rate_hz: float) -> torch.Tensor:
+    """Inverse of `prach_demodulate`: place the occasion and IFFT to time (UE side)."""
+    nwin = prach_window_samples(sequence_length, prach_scs_hz, sample_rate_hz)
+    z = to_cplx(freq_pair)
+    bins = torch.zeros(z.shape[:-1] + (nwin,), dtype=z.dtype, device=z.device)
+    bins[..., on_device(_prach_bins, sequence_length, freq_offset_subc, nwin,
+                        device=z.device)] = z
+    return from_cplx(torch.fft.ifft(bins, dim=-1) * np.float32(np.sqrt(nwin)))

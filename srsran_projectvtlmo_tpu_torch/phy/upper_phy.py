@@ -1,0 +1,435 @@
+"""Upper-PHY orchestration, uplink half: the du_low-equivalent slot engine for
+one cell (port of `srsran_projectvtlmo_tpu.phy.upper_phy`).
+
+Consumes FAPI-shaped PDUs (`fapi.pdus`): carrier OFDM demodulation once per
+slot, then PUSCH (with the device-resident HARQ arena), PUCCH formats 0/1/2,
+SRS and PRACH processing, producing CRC / RxData / UCI / SRS / RACH
+indications.  Every tensor stays on one device, the card unless the caller
+asks for the CPU; the host fetches only what an indication carries.  The
+downlink slot is not ported yet (ROADMAP A10).
+
+Replaces the reference's executor/pool machinery
+(reference: lib/phy/upper/upper_phy_impl.h:46-130, upper_phy_factories.cpp,
+uplink_processor_impl.cpp:70-153) with per-configuration cached receivers:
+one receiver per PUSCH shape serves every UE and slot.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..fapi import validators as fapi_validators
+from ..fapi.pdus import (
+    CrcIndication, DlTtiRequest, RachIndication, RxDataIndication, SrsIndication,
+    TxDataRequest, UciIndication, UlTtiRequest)
+from ..models.pusch_rx import (
+    PuschRxConfig, cached_demux_plan, cached_pusch_rx_from_grid, flatten_tb_bits)
+from ..ops import ofdm as ofdm_mod
+from ..ops import prach as prach_mod
+from ..ops import prg as prg_mod
+from ..ops import srs as srs_mod
+from ..ops.dmrs import dmrs_type1_sequence, dmrs_type2_sequence
+from ..ops.ulsch_demux import placeholder_fix_signs
+from ..ran.modulation import bits_per_symbol
+from ..utils.cplx import np_to_pair, to_cplx
+from ..utils.tables import resolve_device
+from . import pucch as pucch_mod
+from .harq import RxBufferPool
+from .prach_buffer import PrachBuffer
+from .pusch_uci import PuschUciConfig, PuschUciProcessor
+
+_LOG = logging.getLogger("upper_phy")
+
+
+@dataclass
+class ExpertPhyConfig:
+    """Expert PHY knobs (reference: du_low_config.h:63-123).
+
+    `pusch_decoder_max_iterations` sets the receivers' LDPC iteration budget.
+    The JAX config's `use_pallas_decoder` has no counterpart: the device
+    picks the decoder (the CUDA kernel on the card, its plain version on the
+    CPU).  Its `max_proc_delay_slots` is read only by the simulator app,
+    which is not ported; `phy.realtime.SlotPipeline` takes that budget as its
+    own argument.  Its `log_level` and `rx_symbols_filename` belong to the
+    simulator app and the rx-symbol dumper, also not ported (ROADMAP).
+    """
+
+    pusch_decoder_max_iterations: int = 6
+
+
+@dataclass(frozen=True)
+class CellConfig:
+    """One cell's carrier.  The JAX config's downlink fields
+    (`ssb_subc_offset`, `coreset_rb_start`, `grid_bf16`) come with the DL
+    slot that reads them (ROADMAP A10)."""
+
+    nof_rb: int = 273
+    dft_size: int = 4096
+    numerology: int = 1
+    nof_tx_ports: int = 1
+    nof_rx_ports: int = 1
+    phys_cell_id: int = 1
+
+    @property
+    def nof_subc(self) -> int:
+        return self.nof_rb * 12
+
+
+def extract_pusch_allocation(grid: torch.Tensor, pdu) -> torch.Tensor:
+    """Slice the PUSCH allocation out of batched carrier grids
+    (B, P, 14, nsubc, 2) -> (B, P, nsym, nsub_alloc, 2), hop-aware: each
+    symbol's rows come from that symbol's hop PRB (reference: per-hop RE
+    extraction in the PUSCH demodulator)."""
+    hop = getattr(pdu, "hop_symbol", None)
+    k0 = pdu.rb_start * 12
+    nsub = pdu.rb_size * 12
+    s0, ns = pdu.start_symbol, pdu.nof_symbols
+    if hop is None:
+        return grid[:, :, s0:s0 + ns, k0:k0 + nsub, :]
+    k1 = pdu.second_hop_prb * 12
+    return torch.cat([grid[:, :, s0:hop, k0:k0 + nsub, :],
+                      grid[:, :, hop:s0 + ns, k1:k1 + nsub, :]], dim=2)
+
+
+def pusch_dmrs_ref_values(slot: int, pdu) -> np.ndarray:
+    """(ndmrs, npil) complex64 DM-RS reference for one PUSCH PDU: type 1/2,
+    CRB-indexed from the PDU's (per-hop) PRB start."""
+    hop = getattr(pdu, "hop_symbol", None)
+
+    def _prb(sym_abs: int) -> int:
+        if hop is not None and sym_abs >= hop:
+            return pdu.second_hop_prb
+        return pdu.rb_start
+
+    gen = (dmrs_type2_sequence if getattr(pdu, "dmrs_config_type", 1) == 2
+           else dmrs_type1_sequence)
+    return np.stack([gen(slot, s, pdu.n_id, pdu.rb_size, prb_start=_prb(s))
+                     for s in pdu.dmrs_symbols])
+
+
+def _upload(a, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host array (or a tensor) on `device`.  To the card a host array goes
+    through pinned memory without blocking, so that the upload does not wait
+    for the work already queued on the device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _host(x) -> np.ndarray:
+    """A device tensor (or a host array the two-phase processor already
+    fetched) as numpy; copying a tensor to the host waits for the device."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class FapiValidationError(ValueError):
+    """Raised when a slot message fails FAPI validation
+    (reference: fapi message_validators reject + error.indication path)."""
+
+    def __init__(self, report):
+        self.report = report
+        super().__init__("; ".join(str(e) for e in report.errors))
+
+
+class UpperPhy:
+    """One cell's upper PHY, uplink slot processing, on `device`: the card
+    unless the caller asks for the CPU.  The HARQ arena lives there too."""
+
+    def __init__(self, cfg: CellConfig, expert: ExpertPhyConfig | None = None, device="cuda"):
+        self.cfg = cfg
+        self.expert = expert or ExpertPhyConfig()
+        self.device = resolve_device(device)
+        self.harq_pool = RxBufferPool(device=self.device)
+        #: PRACH occasions skipped because their capture buffer was not fully
+        #: filled (late/lost symbols): detecting on zero-padded symbols would
+        #: dilute the correlation peak against thresholds calibrated for full
+        #: S-symbol combining and silently miss real preambles.
+        self.nof_dropped_prach_occasions = 0
+        #: Retransmissions decoded WITHOUT their soft-combining history
+        #: because the HARQ rx-buffer pool was exhausted (the reference flags
+        #: pool exhaustion, rx_buffer_pool_impl.cpp reserve failure path).
+        self.nof_dropped_harq_reservations = 0
+
+    # ------------------------------------------------------------------ DL --
+
+    def process_dl_slot(self, request: DlTtiRequest, tx_data: TxDataRequest | None = None,
+                        validate: bool = True, fetch: bool = True):
+        raise NotImplementedError("the downlink slot is not ported yet (ROADMAP A10)")
+
+    # ------------------------------------------------------------------ UL --
+
+    def process_ul_slot(self, request: UlTtiRequest, samples,
+                        prach_samples: np.ndarray | PrachBuffer | None = None,
+                        validate: bool = True) -> list:
+        """Process one UL slot.
+
+        Args:
+          request: the slot's UL PDUs.
+          samples: (nof_rx_ports, nsamples, 2) received baseband, numpy or a
+            tensor.
+          prach_samples: optional frequency-domain PRACH occasion -- either an
+            (L, 2) single-port array, or a `phy.prach_buffer.PrachBuffer`
+            filled by the lower-PHY occasion collector; with a buffer, each
+            PRACH PDU selects its occasion via its `fd_occasion` attribute
+            (default 0) and all ports are combined non-coherently.
+
+        Returns a list of indication objects.
+        """
+        if validate:
+            rep = fapi_validators.validate_ul_tti_request(request)
+            if not rep.ok:
+                raise FapiValidationError(rep)
+        cfg = self.cfg
+        slot = request.slot
+        indications: list = []
+
+        grid = None
+        if request.pusch or request.pucch or request.srs:
+            x = _upload(samples, self.device, torch.float32)
+            grid = ofdm_mod.ofdm_demodulate(x, cfg.nof_subc, cfg.dft_size, cfg.numerology,
+                                            slot % (1 << cfg.numerology))  # (P, 14, nsubc, 2)
+
+        for pdu in request.pusch:
+            indications.extend(self._process_pusch(slot, pdu, grid))
+
+        for pdu in request.pucch:
+            indications.append(self._process_pucch(slot, pdu, grid))
+
+        for pdu in request.srs:
+            indications.append(self._process_srs(slot, pdu, grid, samples))
+
+        if prach_samples is not None:
+            for pdu in request.prach:
+                det_cfg = prach_mod.PrachDetectorConfig(
+                    sequence_length=prach_mod.LONG if pdu.format_is_long else prach_mod.SHORT,
+                    root_sequence_index=pdu.root_sequence_index,
+                    zero_correlation_zone=pdu.zero_correlation_zone,
+                    ncs_table="1.25kHz" if pdu.format_is_long else "short",
+                )
+                if isinstance(prach_samples, PrachBuffer):
+                    if not prach_samples.full:
+                        # Partially-captured occasion: skip detection rather
+                        # than combine all-zero symbols (see
+                        # nof_dropped_prach_occasions).
+                        self.nof_dropped_prach_occasions += 1
+                        _LOG.warning("PRACH occasion at slot %d dropped: capture "
+                                     "buffer not fully filled", slot)
+                        continue
+                    # (S, P, L, 2) occasion -> (1, P, S, L, 2) detector input
+                    # with multi-port non-coherent combining.
+                    occ = np.transpose(prach_samples.occasion(getattr(pdu, "fd_occasion", 0)),
+                                       (1, 0, 2, 3))[None]
+                else:
+                    occ = np.asarray(prach_samples)[None]
+                dets = prach_mod.prach_detect(_upload(occ, self.device, torch.float32), det_cfg)[0]
+                indications.append(RachIndication(slot=slot, preambles=dets))
+
+        return indications
+
+    def _pusch_rx_cfg(self, slot, pdu, *, nof_csi2: int, two_phase: bool) -> PuschRxConfig:
+        """Dynamic-params PuschRxConfig for one PUSCH PDU: the rnti, n_id and
+        slot values ride as inputs, and are normalized out of the cache key
+        (rnti=0, n_id=0, slot within the subframe, second-hop PRB 0), so one
+        cached receiver serves every UE and slot of one shape."""
+        cfg = self.cfg
+        hop = getattr(pdu, "hop_symbol", None)
+        return PuschRxConfig(
+            nof_rb=pdu.rb_size, modulation=pdu.modulation,
+            target_code_rate=pdu.target_code_rate, nof_layers=pdu.nof_layers,
+            nof_ofdm_symbols=pdu.nof_symbols,
+            dmrs_symbols=tuple(s - pdu.start_symbol for s in pdu.dmrs_symbols),
+            rv=pdu.rv, rnti=0, n_id=0,
+            start_symbol=pdu.start_symbol, rb_start=pdu.rb_start,
+            nof_rx_ports=cfg.nof_rx_ports, dft_size=cfg.dft_size,
+            numerology=cfg.numerology,
+            slot=slot % (1 << cfg.numerology),
+            nof_harq_ack_bits=getattr(pdu, "nof_harq_ack_bits", 0),
+            nof_csi_part1_bits=getattr(pdu, "nof_csi_part1_bits", 0),
+            nof_csi_part2_bits=0 if two_phase else nof_csi2,
+            dmrs_config_type=getattr(pdu, "dmrs_config_type", 1),
+            hop_symbol=hop, second_hop_prb=0 if hop is not None else None,
+            nof_ldpc_iterations=self.expert.pusch_decoder_max_iterations,
+            dynamic_params=True,
+        )
+
+    def _process_pusch(self, slot, pdu, grid) -> list:
+        # Every PDU runs through the dynamic-value receiver: the DM-RS
+        # reference (absolute slot + n_id, per-hop PRBs), descrambling signs
+        # (rnti/n_id) and the UCI placeholder fix signs are INPUTS, so one
+        # cached receiver per shape serves every UE and every slot --
+        # including ACK/CSI-on-PUSCH, intra-slot hopping and DM-RS type 2
+        # (reference analog: per-slot PDU churn,
+        # fapi_to_phy_translator.cpp:290-351).  CSI part 2 with a varying
+        # part2_size_map runs the two-phase part1->part2 protocol
+        # (phy.pusch_uci; reference: pusch_processor_impl.cpp:40-92).
+        nof_ack = getattr(pdu, "nof_harq_ack_bits", 0)
+        nof_csi1 = getattr(pdu, "nof_csi_part1_bits", 0)
+        p2map = tuple(getattr(pdu, "part2_size_map", ()) or ())
+        const_csi2 = 0
+        two_phase = False
+        if nof_csi1 and p2map:
+            if len(set(p2map)) == 1:
+                const_csi2 = p2map[0]
+            else:
+                two_phase = True
+        rx_cfg = self._pusch_rx_cfg(slot, pdu, nof_csi2=const_csi2, two_phase=two_phase)
+        seg = rx_cfg.segmentation
+        buf_idx = self.harq_pool.reserve(slot, pdu.rnti, pdu.harq_id, seg.nof_cb,
+                                         new_data=pdu.new_data)
+        if buf_idx is None and not pdu.new_data:
+            self.nof_dropped_harq_reservations += 1
+            _LOG.warning("HARQ pool exhausted: rnti=0x%x harq=%d retransmission "
+                         "decodes without soft-combining history", pdu.rnti, pdu.harq_id)
+        n = seg.nof_cw_bits_per_cb
+        harq = None
+        if buf_idx is not None and not pdu.new_data:
+            harq = self.harq_pool.get_soft(buf_idx, seg.nof_cb, n)[None]
+
+        # The allocation grid (hop-aware), then the per-PDU host sequences:
+        # the DM-RS reference (type 1/2, CRB-indexed, per-hop PRBs), the
+        # descrambling signs and the UCI placeholder fix signs.  The span
+        # covers only their host computation, not the uploads.
+        sub = extract_pusch_allocation(grid[None], pdu)
+        plan = None
+        if nof_ack or nof_csi1:
+            plan, _ = cached_demux_plan(rx_cfg, 0 if two_phase else const_csi2)
+        with record_function("upper_phy.pusch_sequences"):
+            ref = np_to_pair(pusch_dmrs_ref_values(slot, pdu))
+            cinit = ((pdu.rnti << 15) + pdu.n_id) & 0x7FFFFFFF
+            scr = prg_mod.gold_sequence_bits(cinit, rx_cfg.nof_codeword_bits)
+            signs = 1 - 2 * scr.astype(np.int8)
+            fixes = None
+            if plan is not None:
+                qm = bits_per_symbol(pdu.modulation)
+                fixes = [placeholder_fix_signs(idx, nbits, qm, scr) if nbits else None
+                         for idx, nbits in ((plan.ack_bit_idx, nof_ack),
+                                            (plan.csi1_bit_idx, nof_csi1),
+                                            (plan.csi2_bit_idx, 0 if two_phase else const_csi2))]
+        ref_in = _upload(ref, self.device)[None]
+        signs_in = _upload(signs, self.device)[None]
+        uci_fix = None if fixes is None else tuple(
+            None if f is None else _upload(f, self.device, torch.int8)[None] for f in fixes)
+
+        if two_phase:
+            proc = PuschUciProcessor(PuschUciConfig(rx=rx_cfg, part2_size_map=p2map),
+                                     self.device)
+            out = proc.process(sub, harq, ref_in, signs_in, uci_fix, scr_bits=scr[None])
+        else:
+            rx = cached_pusch_rx_from_grid(rx_cfg, self.device)
+            out = rx(sub, harq, ref_in, signs_in, uci_fix)
+        if buf_idx is not None:
+            self.harq_pool.store(buf_idx, seg.nof_cb, n, out["harq_soft"][0])
+        ok = bool(_host(out["tb_crc_ok"])[0])
+        if ok:
+            self.harq_pool.release(pdu.rnti, pdu.harq_id)
+        inds = [
+            CrcIndication(slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id, tb_crc_ok=ok),
+            RxDataIndication(
+                slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id,
+                tb_bits=flatten_tb_bits(_host(out["tb_bits_cb"]), rx_cfg.tbs)[0] if ok else None),
+        ]
+        if nof_ack or nof_csi1:
+            csi2_n = out.get("csi2_bits")
+            uci = UciIndication(
+                slot=slot, rnti=pdu.rnti,
+                harq_bits=(_host(out["harq_ack_bits"])[0] if nof_ack
+                           else np.empty(0, np.uint8)),
+                uci_bits=None,
+                valid=bool(_host(out["harq_ack_metric"])[0] > 0.0)
+                if nof_ack else bool(_host(out["csi1_metric"])[0] > 0.0),
+            )
+            if nof_csi1:
+                uci.csi1_bits = _host(out["csi1_bits"])[0]
+                uci.csi1_valid = bool(_host(out["csi1_metric"])[0] > 0.0)
+            if csi2_n is not None and csi2_n.numel() > 0:
+                uci.csi2_bits = _host(csi2_n)[0]
+                uci.csi2_valid = bool(_host(out["csi2_metric"])[0] > 0.0)
+            inds.append(uci)
+        return inds
+
+    def _process_srs(self, slot, pdu, grid, samples) -> SrsIndication:
+        """Dispatch one SRS PDU: comb-RE extraction + channel/TA estimate ->
+        SrsIndication (reference: lib/phy/upper/uplink_processor_impl.cpp
+        process_srs, srs_estimator_generic_impl.cpp).  `samples` is the slot's
+        raw baseband, kept in the signature of the JAX dispatcher."""
+        scfg = srs_mod.SrsConfig(
+            nof_rb=pdu.nof_rb, comb_size=pdu.comb_size,
+            comb_offset=pdu.comb_offset, start_symbol=pdu.start_symbol,
+            nof_symbols=pdu.nof_symbols, sequence_id=pdu.sequence_id,
+            cyclic_shift=pdu.cyclic_shift,
+            nof_antenna_ports=pdu.nof_antenna_ports,
+        )
+        k0 = pdu.prb_start * 12
+        sub = grid[None, :, pdu.start_symbol:pdu.start_symbol + pdu.nof_symbols,
+                   k0:k0 + pdu.nof_rb * 12, :]
+        est = srs_mod.srs_estimate(sub, scfg)
+        return SrsIndication(
+            slot=slot, rnti=pdu.rnti, channel=_host(to_cplx(est["ce_pair"]))[0],
+            noise_var=float(np.mean(_host(est["noise_var"]))),
+            time_alignment_s=float(np.mean(_host(est["ta_s"]))),
+        )
+
+    def _process_pucch(self, slot, pdu, grid) -> UciIndication:
+        # Slice the allocation out of the device grid for ALL rx ports --
+        # (1, P, S, 12*nof_prb, 2) -- and hand it to the detector; the
+        # reference combines every configured port
+        # (pucch_detector_impl.cpp:225-241) and reads REs from the shared
+        # grid without copying it off the device.
+        k0 = pdu.prb_start * 12
+        sub = grid[:, pdu.start_symbol:pdu.start_symbol + pdu.nof_symbols,
+                   k0:k0 + pdu.nof_prb * 12, :][None]
+        if pdu.format == 0:
+            f0 = pucch_mod.PucchFormat0Config(
+                n_id=pdu.n_id, slot=slot, start_symbol=pdu.start_symbol,
+                nof_symbols=pdu.nof_symbols,
+                initial_cyclic_shift=pdu.initial_cyclic_shift,
+                nof_harq_bits=pdu.nof_harq_bits, sr_opportunity=pdu.sr_opportunity,
+            )
+            bits, metric, sr = pucch_mod.detect_pucch_format0(sub, f0)
+            return UciIndication(slot=slot, rnti=pdu.rnti,
+                                 harq_bits=_host(bits)[0], uci_bits=None,
+                                 valid=bool(_host(metric)[0] > 1.0),
+                                 sr_detected=bool(_host(sr)[0]))
+        if pdu.format == 1:
+            hop = getattr(pdu, "second_hop_prb", None)
+            f1 = pucch_mod.PucchFormat1Config(
+                n_id=pdu.n_id, slot=slot, start_symbol=pdu.start_symbol,
+                nof_symbols=pdu.nof_symbols,
+                initial_cyclic_shift=pdu.initial_cyclic_shift,
+                time_domain_occ=pdu.time_domain_occ, nof_harq_bits=pdu.nof_harq_bits,
+                intra_slot_hopping=hop is not None,
+            )
+            if hop is not None:
+                # Second-hop symbols take their 12 REs from the hop's PRB
+                # (still on the device, all ports).
+                half = pdu.nof_symbols // 2
+                k1 = hop * 12
+                s0, s1 = pdu.start_symbol, pdu.start_symbol + pdu.nof_symbols
+                sub = torch.cat([grid[:, s0:s0 + half, k0:k0 + 12, :],
+                                 grid[:, s0 + half:s1, k1:k1 + 12, :]], dim=1)[None]
+            bits, metric = pucch_mod.detect_pucch_format1(sub, f1)
+            return UciIndication(slot=slot, rnti=pdu.rnti,
+                                 harq_bits=_host(bits)[0], uci_bits=None,
+                                 valid=bool(_host(metric)[0] > 1.0))
+        if pdu.format == 2:
+            f2 = pucch_mod.PucchFormat2Config(
+                n_id=pdu.n_id, n_id0=pdu.n_id0, rnti=pdu.rnti, slot=slot,
+                start_symbol=pdu.start_symbol, nof_symbols=pdu.nof_symbols,
+                nof_prb=pdu.nof_prb, nof_uci_bits=pdu.nof_uci_bits,
+            )
+            bits, ok = pucch_mod.process_pucch_format2(sub, f2)
+            return UciIndication(slot=slot, rnti=pdu.rnti,
+                                 harq_bits=np.empty(0, np.uint8),
+                                 uci_bits=_host(bits)[0],
+                                 valid=bool(_host(ok)[0]))
+        raise ValueError(f"unsupported PUCCH format {pdu.format}")

@@ -1,14 +1,20 @@
 """PyTorch port, host-side copies: the port carries its own copies of the JAX
 package's host modules (`ran/ldpc_params`, `ran/modulation`, `ran/sch`,
-`ran/ulsch_info`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`)
-and of the base-graph and polar data files, so that it imports nothing of the
-JAX package.  Each copy is held equal to its original here, value by value.
+`ran/ulsch_info`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`;
+for the uplink FAPI entry point `fapi/pdus`, `fapi/validators`,
+`ran/prach_preamble`, `ran/prach_cyclic_shifts`, `ran/prach_config`,
+`ops/low_papr`, `phy/error_handler`, `phy/metrics`) and of the base-graph,
+polar, low-PAPR and PRACH data files, so that it imports nothing of the JAX
+package.  Each copy is held equal to its original here, value by value, and
+the uplink copies also code by code (their docstrings aside).
 
 `port_mod` and `port_kw` translate the JAX package's `Modulation` into the
 port's own enum, for tests that hand one configuration to both packages.
 """
 
+import ast
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -221,3 +227,100 @@ def test_polar_data_file_equal():
     ours = REPO / "srsran_projectvtlmo_tpu_torch" / "data" / "polar_tables.npz"
     assert polar_code._DATA == ours
     _data_files_equal(ours, REPO / "srsran_projectvtlmo_tpu" / "data" / "polar_tables.npz")
+
+
+_UL_COPIES = ("fapi/__init__.py", "fapi/pdus.py", "fapi/validators.py", "ran/prach_preamble.py",
+              "ran/prach_cyclic_shifts.py", "ran/prach_config.py", "ops/low_papr.py",
+              "phy/error_handler.py", "phy/metrics.py")
+
+
+def _code(path: Path) -> str:
+    """The module's syntax tree without its docstrings."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", _UL_COPIES)
+def test_uplink_host_copy_code_equal(rel):
+    assert _code(REPO / "srsran_projectvtlmo_tpu_torch" / rel) == \
+        _code(REPO / "srsran_projectvtlmo_tpu" / rel), rel
+
+
+@pytest.mark.parametrize("name", ["low_papr_tables.npz", "prach_tables.npz",
+                                  "prach_thresholds.npz"])
+def test_uplink_data_files_equal(name):
+    """The port reads its own copies of the low-PAPR and PRACH tables."""
+    from srsran_projectvtlmo_tpu_torch.ops import low_papr, prach
+
+    ours = REPO / "srsran_projectvtlmo_tpu_torch" / "data" / name
+    assert ours in (low_papr._DATA, prach._DATA, prach._THRESH)
+    _data_files_equal(ours, REPO / "srsran_projectvtlmo_tpu" / "data" / name)
+
+
+def test_prach_config_tables_equal():
+    from srsran_projectvtlmo_tpu.ran import prach_config as jax_prach_config
+    from srsran_projectvtlmo_tpu_torch.ran import prach_config
+
+    ours = REPO / "srsran_projectvtlmo_tpu_torch" / "data" / "prach_config_tables.json"
+    assert prach_config._DATA == ours
+    theirs = REPO / "srsran_projectvtlmo_tpu" / "data" / "prach_config_tables.json"
+    assert json.loads(ours.read_text()) == json.loads(theirs.read_text())
+    for duplex in ("fr1_paired", "fr1_unpaired"):
+        for index in range(256):
+            assert dataclasses.asdict(prach_config.prach_configuration(duplex, index)) == \
+                dataclasses.asdict(jax_prach_config.prach_configuration(duplex, index))
+
+
+def test_prach_preamble_and_cyclic_shifts_equal():
+    from srsran_projectvtlmo_tpu.ran import prach_cyclic_shifts as jax_shifts
+    from srsran_projectvtlmo_tpu.ran import prach_preamble as jax_preamble
+    from srsran_projectvtlmo_tpu_torch.ran import prach_cyclic_shifts, prach_preamble
+
+    for fmt in prach_preamble.LONG_FORMATS + prach_preamble.SHORT_FORMATS:
+        for mu in (0, 1, 2, 3):
+            a, b = prach_preamble.preamble_info(fmt, mu), jax_preamble.preamble_info(fmt, mu)
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), (fmt, mu)
+            assert a.cp_prach == b.cp_prach, (fmt, mu)
+    for scs in ("1.25kHz", "5kHz", "15kHz", "30kHz"):
+        for restricted in prach_cyclic_shifts.RestrictedSetConfig:
+            theirs = jax_shifts.RestrictedSetConfig(restricted.value)
+            for zcz in range(16):
+                assert prach_cyclic_shifts.prach_cyclic_shifts_get(scs, restricted, zcz) == \
+                    jax_shifts.prach_cyclic_shifts_get(scs, theirs, zcz), (scs, restricted, zcz)
+
+
+def test_ul_tti_validation_equal():
+    """The same requests give the same reports, valid or not."""
+    from srsran_projectvtlmo_tpu.fapi import pdus as jax_pdus
+    from srsran_projectvtlmo_tpu.fapi import validators as jax_validators
+    from srsran_projectvtlmo_tpu_torch.fapi import pdus, validators
+
+    def request(mod, lib):
+        pusch = lib.PuschPdu(rnti=0x10, rb_start=0, rb_size=8, modulation=mod.QAM16,
+                             target_code_rate=0.5)
+        return [
+            lib.UlTtiRequest(slot=0, pusch=(pusch,)),
+            lib.UlTtiRequest(slot=1, pusch=(dataclasses.replace(
+                pusch, nof_csi_part1_bits=2, part2_size_map=(4, 6)), dataclasses.replace(
+                pusch, hop_symbol=7, dmrs_symbols=(2, 3), rv=1))),
+            lib.UlTtiRequest(slot=2, pucch=(lib.PucchPdu(format=3, rnti=1, prb_start=0,
+                                                         nof_prb=1, start_symbol=0,
+                                                         nof_symbols=14),
+                                            lib.PucchPdu(format=2, rnti=0, prb_start=300,
+                                                         nof_prb=20, start_symbol=13,
+                                                         nof_symbols=2, nof_uci_bits=2)),
+                             prach=(lib.PrachPdu(root_sequence_index=900, restricted_set=1),),
+                             srs=(lib.SrsPdu(rnti=1, nof_rb=2, comb_size=3, cyclic_shift=9),)),
+        ]
+
+    for a, b in zip(request(modulation.Modulation, pdus),
+                    request(jax_modulation.Modulation, jax_pdus)):
+        ra, rb = validators.validate_ul_tti_request(a), jax_validators.validate_ul_tti_request(b)
+        assert ra.ok == rb.ok
+        assert [str(e) for e in ra.errors] == [str(e) for e in rb.errors]
+

@@ -39,7 +39,7 @@ from srsran_projectvtlmo_tpu.ran.sch import sch_segmentation_info
 from srsran_projectvtlmo_tpu_torch.models import channel, sch_tx
 from srsran_projectvtlmo_tpu_torch.models.pusch_rx import PuschRxConfig
 from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
-from srsran_projectvtlmo_tpu_torch.ops import demodulation, modulation, precoding
+from srsran_projectvtlmo_tpu_torch.ops import demodulation, modulation, ofdm, precoding
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import graphs, segment
 from srsran_projectvtlmo_tpu_torch.ops.ldpc.encode import ldpc_encode
 from tests.test_torch_host_copies import port_kw, port_mod
@@ -194,6 +194,26 @@ def test_ulsch_tx_matches_jax(nof_layers, dmrs):
     np.testing.assert_allclose(grid.numpy(), j_grid, rtol=0, atol=1e-6)
     np.testing.assert_allclose(samples.numpy(), j_samples, rtol=0,
                                atol=1e-5 * np.abs(j_samples).max())
+
+
+@pytest.mark.parametrize("start,nsym", [(1, 13), (0, 12), (2, 10)])
+def test_ulsch_tx_short_allocation_samples(start, nsym):
+    """A short allocation's samples are a whole slot with the grid at
+    start_symbol: demodulated back, its symbols equal the grid (1e-5 of the
+    largest value, a float32 FFT round trip) and the others are empty."""
+    kw = dict(nof_rb=24, modulation=Modulation.QAM16, target_code_rate=0.5, nof_layers=2,
+              dft_size=512, numerology=1, slot=3, start_symbol=start, nof_ofdm_symbols=nsym,
+              dmrs_symbols=(0, nsym - 3))
+    cfg = PuschRxConfig(**port_kw(kw))
+    tb = np.random.default_rng(nsym).integers(0, 2, (1, cfg.tbs)).astype(np.uint8)
+    grid, samples = build_ulsch_tx_slot(cfg, device="cpu")(torch.as_tensor(tb))
+    assert grid.shape == (1, 2, nsym, cfg.nof_subc, 2)
+    back = ofdm.ofdm_demodulate(samples, cfg.nof_subc, 512, 1, 3 % 2).numpy()
+    assert back.shape == (1, 2, 14, cfg.nof_subc, 2)
+    tol = 1e-5 * np.abs(grid.numpy()).max()
+    np.testing.assert_allclose(back[:, :, start:start + nsym], grid.numpy(), rtol=0, atol=tol)
+    outside = np.delete(back, np.s_[start:start + nsym], axis=2)
+    np.testing.assert_allclose(outside, 0.0, rtol=0, atol=tol)
 
 
 def test_ulsch_tx_rejects_deferred_settings():
