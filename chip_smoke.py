@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver and uplink
-FAPI entry point (`UpperPhy.process_ul_slot`) on an NVIDIA GPU and check them.
+"""Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver and FAPI entry
+point (`UpperPhy.process_ul_slot` and `process_dl_slot`) on an NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -76,13 +77,32 @@ non-zero:
 17. (d) for slots (a) and (c) at batch 1, one JSON line each with the card's
    name and power limit: host ms per `process_ul_slot` (median of 12),
    device kernel time, kernel and LDPC launches, stream synchronisations and
-   the host ms of the per-PDU sequence generation per slot (torch.profiler).
+   the host ms of the per-PDU sequence generation per slot (torch.profiler);
+18. the north-star DL slot (benchmarks/dl_slot_bench.py: 273 PRB, DFT 4096, 4
+   tx ports, a 2-layer QAM256 PDSCH precoded by the 4x2 DFT matrix, an
+   interleaved AL-4 PDCCH, one SSB, CSI-RS on symbol 13, bf16 grid) through
+   `UpperPhy(cell, device="cuda").process_dl_slot`, held against the same
+   request through the port on the CPU (grid to `DL_GRID_TOL` of its peak per
+   RE, samples to `DL_SAMPLES_REL_RMS`), and the PDCCH candidate
+   blind-decoded from the card's grid to its DCI bits;
+19. the DL loopback: PDSCH + PDCCH slots at the same PDSCH shape for two UEs
+   on one plan, each through `process_dl_slot` on the card, the port's OFDM
+   demodulator, the precoder's pseudo-inverse, demap, layer demap,
+   descrambling, rate dematching and the early-stop kernel; every CB and the
+   TB pass with the bits sent, and the kernel's launches are counted;
+20. one JSON line for the north-star DL slot with the card's name and power
+   limit: host ms per `process_dl_slot` (median of 12), device kernel time,
+   kernels and stream synchronisations per slot, host ms in the
+   `upper_phy.dl_values` span (torch.profiler), and the batch-8
+   `DlSlotProgram.run_batched` / `run_stacked` device ms per slot (CUDA
+   events).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -1254,6 +1274,240 @@ def fapi_timing(phy, request, samples, prach_samples, label: str, smi: str) -> N
         "device": torch.cuda.get_device_name(0), "card": smi}))
 
 
+# ----------------------------------------------------------------- the DL slot --
+
+#: The north-star DL slot (benchmarks/dl_slot_bench.py): 273 PRB, DFT 4096, 4 tx
+#: ports, slot 2; a 2-layer QAM256 R=948/1024 PDSCH on symbols 2-13 (DM-RS on
+#: 2) precoded by the 4x2 DFT matrix, a 40-bit DCI at AL 4 on symbol 1 of an
+#: interleaved 48-RB CORESET, one SSB (PCI 1, block 0) and a 273-RB CSI-RS of
+#: the PDU's default row (2) on symbol 13 at subcarrier offset 3.
+DL_SLOT = 2
+DL_W = np.exp(-2j * np.pi * np.outer(np.arange(4), np.arange(2)) / 4) / 2.0
+#: The two UEs of the loopback: (rnti, n_id).
+DL_UES = ((0x4601, 1), (0x2B67, 500))
+#: Card against CPU, both `grid_bf16`: per RE, one bf16 step of the grid's
+#: peak (2^-8: where the two float32 sums differ in their last bit, they may
+#: round to neighbouring bf16 values); the samples to 1e-4 relative RMS (the
+#: FFTs sum in another order; a flipped bf16 RE adds about 2^-8 of one RE).
+DL_GRID_TOL = 2.0 ** -8
+DL_SAMPLES_REL_RMS = 1e-4
+#: Noise variance the PDCCH decoder and the PDSCH demapper assume: the grid's
+#: only noise is the bf16 quantization (<= 2^-9 of the peak per component).
+DL_NOISE_VAR = 1e-3
+
+
+def dl_cell():
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig
+
+    return CellConfig(nof_rb=NS_PRB, dft_size=NS_DFT, numerology=1, nof_tx_ports=4)
+
+
+def dl_request(rnti: int, n_id: int, seed: int, ssb_csi: bool = True):
+    """(DlTtiRequest, TxDataRequest, DCI bits) of the north-star DL slot for
+    one UE, the TB and the DCI drawn from `seed`; without `ssb_csi`, no SSB
+    and no CSI-RS."""
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import (
+        CsiRsPdu, DlTtiRequest, PdcchPdu, PdschPdu, SsbPdu, TxDataRequest)
+    from srsran_projectvtlmo_tpu_torch.ops.modulation import Modulation
+    from srsran_projectvtlmo_tpu_torch.phy.dl_slot import get_dl_slot_program
+
+    rng = np.random.default_rng(seed)
+    dci = rng.integers(0, 2, 40).astype(np.uint8)
+    pdcch = PdcchPdu(rnti=rnti, nof_dci_bits=40, aggregation_level=4, cce_index=0,
+                     start_symbol=1, n_id=n_id, n_rnti=rnti, coreset_nof_rb=48, interleaved=True)
+    object.__setattr__(pdcch, "payload", tuple(int(b) for b in dci))  # the DCI the slot sends
+    pdsch = PdschPdu(rnti=rnti, rb_start=0, rb_size=NS_PRB, modulation=Modulation.QAM256,
+                     target_code_rate=948 / 1024, nof_layers=2, start_symbol=2, nof_symbols=12,
+                     dmrs_symbols=(2,), n_id=n_id,
+                     precoding=tuple(tuple((float(c.real), float(c.imag)) for c in row)
+                                     for row in DL_W))
+    extra = dict(ssb=(SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=0, half_radio_frame=False),),
+                 csi_rs=(CsiRsPdu(nof_rb=NS_PRB, symbol=13, subcarrier_offset=3),)) \
+        if ssb_csi else {}
+    req = DlTtiRequest(slot=DL_SLOT, pdcch=(pdcch,), pdsch=(pdsch,), **extra)
+    tbs = get_dl_slot_program(req, dl_cell(), "cpu").pdsch_cfgs[0].tbs
+    return req, TxDataRequest(slot=DL_SLOT, tb_bits=[rng.integers(0, 2, tbs).astype(np.uint8)]), dci
+
+
+def decode_pdcch(grid: torch.Tensor, req, cell) -> tuple[bool, np.ndarray]:
+    """Blind-decode the request's PDCCH candidate from port 0 of a (4, 14, S)
+    complex grid on the card: (CRC flag, DCI bits)."""
+    from srsran_projectvtlmo_tpu_torch.phy import pdcch as pdcch_mod
+    from srsran_projectvtlmo_tpu_torch.phy.dl_slot import _pdcch_plan
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import from_cplx
+
+    pdu = req.pdcch[0]
+    _, data_idx, _ = _pdcch_plan(pdu, cell)
+    re = grid[0].reshape(-1)[torch.as_tensor(data_idx, device=grid.device, dtype=torch.int64)]
+    bits, ok = pdcch_mod.pdcch_blind_decode(
+        from_cplx(re)[None], torch.full((1, re.shape[0]), DL_NOISE_VAR, device=grid.device),
+        pdcch_mod.PdcchCandidateConfig(nof_dci_bits=pdu.nof_dci_bits,
+                                       aggregation_level=pdu.aggregation_level, rnti=pdu.rnti,
+                                       n_id=pdu.n_id, n_rnti=pdu.n_rnti))
+    return bool(ok[0]), bits[0].cpu().numpy()
+
+
+def phase_dl_northstar(smi: str):
+    """(18) The north-star DL slot through `UpperPhy.process_dl_slot` on the
+    card, held against the same request through the port on the CPU; the
+    PDCCH candidate decoded from the card's grid.  Returns (phy, request,
+    tx_data) for the timing phase."""
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    cell = dl_cell()
+    req, data, dci = dl_request(*DL_UES[0], seed=18)
+    phy = UpperPhy(cell, device="cuda")
+    phy.process_dl_slot(req, data)  # builds the plan, moves its index tables
+    grid, samples = phy.process_dl_slot(req, data)
+    t0 = time.perf_counter()
+    cpu_grid, cpu_samples = UpperPhy(cell, device="cpu").process_dl_slot(req, data)
+    cpu_s = time.perf_counter() - t0
+    nsamp = ofdm.slot_sample_count(NS_DFT, 1, DL_SLOT % 2)
+    shapes_ok = grid.shape == (4, 14, NS_PRB * 12) and samples.shape == (4, nsamp, 2)
+    finite = bool(np.isfinite(grid).all() and np.isfinite(samples).all())
+    peak = float(np.abs(cpu_grid).max())
+    grid_err = float(np.abs(grid - cpu_grid).max()) / peak
+    rel = float(np.sqrt(np.mean((samples - cpu_samples) ** 2) / np.mean(cpu_samples ** 2)))
+    ok, bits = decode_pdcch(torch.as_tensor(grid, device="cuda"), req, cell)
+    dci_ok = ok and bool((bits == dci).all())
+    print(f"DL north-star slot (process_dl_slot, {NS_PRB} PRB, 4 ports, PDSCH 2 layers QAM256 + "
+          f"PDCCH + SSB + CSI-RS, bf16 grid): grid {grid.shape}, samples {samples.shape}, "
+          f"max |card - CPU| / peak {grid_err:.3g} (bound {DL_GRID_TOL:.3g}), samples "
+          f"relative RMS {rel:.3g} (bound {DL_SAMPLES_REL_RMS}), PDCCH from the card's grid: "
+          f"crc_ok {ok}, DCI equal {dci_ok}; the CPU port took {cpu_s:.1f} s; {smi}")
+    if not (shapes_ok and finite and grid_err <= DL_GRID_TOL and rel <= DL_SAMPLES_REL_RMS
+            and dci_ok):
+        raise SystemExit("the card's north-star DL slot differs from the port on the CPU")
+    return phy, req, data
+
+
+def dl_receive(samples: torch.Tensor, pdu, cfg):
+    """The DL loopback's receiver on the card: (4, nsamples, 2) samples -> the
+    port's OFDM demodulator -> the precoder's pseudo-inverse on the PDSCH
+    data REs -> layer demap -> demap -> descramble with the PDU's rnti/n_id
+    -> rate dematch -> the early-stop kernel -> CB and TB CRCs.
+    Returns (tb_crc_ok, cb_crc_ok (C,), TB bits)."""
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm, prg
+    from srsran_projectvtlmo_tpu_torch.ops.demodulation import soft_demap
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc import rate_match as rm
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.segment import desegment_rx
+    from srsran_projectvtlmo_tpu_torch.ops.precoding import layer_demap
+    from srsran_projectvtlmo_tpu_torch.ran.modulation import bits_per_symbol
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import from_cplx, to_cplx
+
+    dev = samples.device
+    seg = cfg.segmentation
+    qm = bits_per_symbol(cfg.modulation)
+    grid = ofdm.ofdm_demodulate(samples, NS_PRB * 12, NS_DFT, 1, DL_SLOT % 2)
+    data_syms = [pdu.start_symbol + s for s in cfg.data_symbols]
+    k0 = pdu.rb_start * 12
+    y = to_cplx(grid[:, data_syms, k0:k0 + cfg.nof_subc]).reshape(4, -1)  # (P, M)
+    w = torch.as_tensor(DL_W.astype(np.complex64), device=dev)
+    x = layer_demap(torch.linalg.pinv(w) @ y)  # (G / Qm,)
+    llr = soft_demap(from_cplx(x)[None], torch.full((1, x.shape[0]), DL_NOISE_VAR, device=dev),
+                     cfg.modulation)[0]
+    cinit = ((pdu.rnti << 15) + pdu.n_id) & 0x7FFFFFFF
+    signs = torch.as_tensor(1 - 2 * prg.gold_sequence_bits(cinit, cfg.nof_codeword_bits)
+                            .astype(np.int32), device=dev)
+    llr = torch.clamp(llr.to(torch.int32) * signs, -127, 127).to(torch.int8)
+    crc_cb = "CRC24B" if seg.cb_crc_bits else ("CRC24A" if seg.tb_crc_bits == 24 else "CRC16")
+    hards, oks, off = [], [], 0
+    for e, run in itertools.groupby(cfg.cb_rate_match_sizes()):  # equal-E codeblock groups
+        nj = len(list(run))
+        soft = rm.rate_dematch(llr[off:off + nj * e].reshape(nj, e), seg.base_graph,
+                               seg.lifting_size, seg.nof_filler_bits_per_cb, pdu.rv, e, qm)
+        h, _, ok, _ = decode_cuda.ldpc_decode_es(soft.contiguous(), seg.base_graph,
+                                                 seg.lifting_size, crc_cb,
+                                                 seg.nof_payload_bits_per_cb, nof_iterations=6)
+        hards.append(h)
+        oks.append(ok)
+        off += nj * e
+    tb, tb_ok, cb_ok = desegment_rx(torch.cat(hards), seg, cfg.tbs)
+    return bool(tb_ok), (cb_ok & torch.cat(oks)).cpu().numpy(), tb.cpu().numpy()
+
+
+def phase_dl_loopback() -> dict:
+    """(19) PDSCH + PDCCH slots at the north-star PDSCH shape (no SSB or CSI-RS
+    over the PDSCH) for two UEs on one plan: `process_dl_slot` on the card,
+    then `dl_receive`; every CB and the TB pass and the bits equal the TB
+    sent, with the early-stop kernel launched."""
+    from srsran_projectvtlmo_tpu_torch.phy import dl_slot
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    cell = dl_cell()
+    phy = UpperPhy(cell, device="cuda")
+    launches, plans = {}, set()
+    for k, (rnti, n_id) in enumerate(DL_UES):
+        req, data, _ = dl_request(rnti, n_id, seed=19 + k, ssb_csi=False)
+        program = dl_slot.get_dl_slot_program(req, cell, "cuda")
+        plans.add(id(program))
+        cfg = program.pdsch_cfgs[0]
+        label = f"DL loopback, UE rnti {rnti:#x} n_id {n_id} ({NS_PRB} PRB QAM256 4x2, bf16 grid)"
+
+        def loop():
+            _, samples = phy.process_dl_slot(req, data, fetch=False)
+            return dl_receive(samples, req.pdsch[0], cfg)
+
+        loop()  # the first call builds the plan's tables on the card
+        (tb_ok, cb_ok, tb), n = count_launches(loop, True, label)
+        errors = int((tb != data.tb_bits[0]).sum())
+        print(f"{label}: tb_crc_ok {tb_ok}, cb_crc_ok {int(cb_ok.sum())}/{cb_ok.size}, "
+              f"TB bit errors {errors}, kernel launches {n}")
+        if not (tb_ok and cb_ok.all() and errors == 0):
+            raise SystemExit(f"{label}: the PDSCH did not decode to the TB sent")
+        launches[f"dl_loopback_ue{k + 1}"] = n
+    if len(plans) != 1:
+        raise SystemExit(f"the two UEs used {len(plans)} DL plans, not one")
+    return launches
+
+
+def phase_dl_timing(phy, req, data, smi: str) -> None:
+    """(20) One JSON line for the north-star DL slot at batch 1: host ms per
+    `process_dl_slot` (median of 12, each ending with grid and samples on
+    the host), then `torch.profiler` over 3 calls (device kernel time,
+    kernels and stream synchronisations per slot, host ms in the
+    `upper_phy.dl_values` span), and the batch-8 `run_batched` (values
+    stacked and uploaded each call) and `run_stacked` (pre-stacked) device ms
+    per slot from CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from srsran_projectvtlmo_tpu_torch.phy import dl_slot
+
+    call = lambda: phy.process_dl_slot(req, data)
+    host_ms = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        call()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+    kernels, _ = device_events(prof)
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    values_ms = sum(e.time_range.elapsed_us() for e in cpu
+                    if e.name == "upper_phy.dl_values") / 1e3 / calls
+    program = dl_slot.get_dl_slot_program(req, phy.cfg, "cuda")
+    values = dl_slot.build_dl_slot_inputs(program, req, data, DL_SLOT)
+    args = [program.value_args(req, values)] * 8
+    batched_ms = cuda_time_ms(lambda: program.run_batched(DL_SLOT, args), reps=5) / 8
+    stacked = program.stack_values(args)
+    stacked_ms = cuda_time_ms(lambda: program.run_stacked(DL_SLOT, stacked), reps=5) / 8
+    print(json.dumps({
+        "profile": "upper_phy_process_dl_slot_northstar_batch1",
+        "host_ms_per_slot": float(np.median(host_ms)), "host_ms_calls": host_ms,
+        "device_kernel_ms_per_slot": (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                                      / calls if kernels else "not measured"),
+        "kernels_per_slot": len(kernels) / calls if kernels else "not measured",
+        "stream_syncs_per_slot": sum(e.name == "cudaStreamSynchronize" for e in cpu) / calls,
+        "dl_values_host_ms_per_slot": values_ms,
+        "batch8_run_batched_device_ms_per_slot": batched_ms,
+        "batch8_run_stacked_device_ms_per_slot": stacked_ms,
+        "device": torch.cuda.get_device_name(0), "card": smi}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1290,7 +1544,10 @@ def main() -> int:
     phase_uci_profile(gen)
     fapi = {**phase_fapi_northstar(gen, smi), **phase_fapi_harq(gen),
             **phase_fapi_mixed(gen, smi)}
+    dl_phy, dl_req, dl_data = phase_dl_northstar(smi)
+    fapi.update(phase_dl_loopback())
     print(json.dumps({"fapi_ldpc_decode_es_launches_per_call": fapi}))
+    phase_dl_timing(dl_phy, dl_req, dl_data, smi)
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
             ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]

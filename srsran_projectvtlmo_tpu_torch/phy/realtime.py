@@ -161,10 +161,11 @@ class BasebandChain:
 
 class LowerPhyRealtime:
     """DL + UL chains with bounded queues, driving an upper PHY and a
-    baseband gateway -- the du-low-equivalent realtime loop.  The port's
-    `UpperPhy.process_dl_slot` raises NotImplementedError until the DL slot
-    is ported (ROADMAP A10); the DL chain hands it back as the request's
-    exception result."""
+    baseband gateway -- the du-low-equivalent realtime loop.  The DL chain
+    takes (DlTtiRequest, TxDataRequest) and hands the slot's samples to the
+    gateway; the UL chain takes (UlTtiRequest, nof_samples, PRACH samples)
+    and returns the indications.  A chain returns an exception raised by
+    the upper PHY as that request's result."""
 
     def __init__(self, upper_phy, gateway, error_handler: UpperPhyErrorHandler,
                  queue_depth: int = 4):

@@ -38,7 +38,9 @@ _MODULES = ("models.pusch_rx", "models.sch_config", "models.sch_tx", "models.uls
             "ran.ulsch_info", "fapi.pdus", "fapi.validators", "ops.low_papr", "ops.prach",
             "ops.srs", "phy.error_handler", "phy.harq", "phy.metrics", "phy.prach_buffer",
             "phy.pucch", "phy.realtime", "phy.upper_phy", "phy.warmup", "ran.prach_config",
-            "ran.prach_cyclic_shifts", "ran.prach_preamble")
+            "ran.prach_cyclic_shifts", "ran.prach_preamble", "ops.polar.interleave", "ops.csi_rs",
+            "ran.re_pattern", "ran.pdcch_mapping", "phy.pbch", "phy.pdcch", "models.pdsch_tx",
+            "phy.dl_slot")
 _FOREIGN = ("jax", "srsran_projectvtlmo_tpu")
 
 

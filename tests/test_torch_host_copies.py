@@ -3,10 +3,11 @@ package's host modules (`ran/ldpc_params`, `ran/modulation`, `ran/sch`,
 `ran/ulsch_info`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`;
 for the uplink FAPI entry point `fapi/pdus`, `fapi/validators`,
 `ran/prach_preamble`, `ran/prach_cyclic_shifts`, `ran/prach_config`,
-`ops/low_papr`, `phy/error_handler`, `phy/metrics`) and of the base-graph,
+`ops/low_papr`, `phy/error_handler`, `phy/metrics`; for the downlink slot
+`ran/re_pattern`, `ran/pdcch_mapping`, `ops/csi_rs`) and of the base-graph,
 polar, low-PAPR and PRACH data files, so that it imports nothing of the JAX
 package.  Each copy is held equal to its original here, value by value, and
-the uplink copies also code by code (their docstrings aside).
+the uplink and downlink copies also code by code (their docstrings aside).
 
 `port_mod` and `port_kw` translate the JAX package's `Modulation` into the
 port's own enum, for tests that hand one configuration to both packages.
@@ -324,3 +325,68 @@ def test_ul_tti_validation_equal():
         assert ra.ok == rb.ok
         assert [str(e) for e in ra.errors] == [str(e) for e in rb.errors]
 
+
+
+_DL_COPIES = ("ran/re_pattern.py", "ran/pdcch_mapping.py", "ops/csi_rs.py")
+
+
+@pytest.mark.parametrize("rel", _DL_COPIES)
+def test_downlink_host_copy_code_equal(rel):
+    assert _code(REPO / "srsran_projectvtlmo_tpu_torch" / rel) == \
+        _code(REPO / "srsran_projectvtlmo_tpu" / rel), rel
+
+
+def test_re_pattern_values_equal():
+    """Masks and inclusion counts over strided, partial and CSI-RS patterns."""
+    from srsran_projectvtlmo_tpu.ops import csi_rs as jax_csi_rs
+    from srsran_projectvtlmo_tpu.ran import re_pattern as jax_re_pattern
+    from srsran_projectvtlmo_tpu_torch.ops import csi_rs
+    from srsran_projectvtlmo_tpu_torch.ran import re_pattern
+
+    rng = np.random.default_rng(3)
+    masks = [tuple(bool(b) for b in rng.integers(0, 2, 12)) for _ in range(2)]
+    kws = [dict(rb_begin=2, rb_end=20, re_mask=masks[0], symbols=(3, 7)),
+           dict(rb_begin=10, rb_end=30, rb_stride=2, re_mask=masks[1], symbols=(7, 9))]
+    ours = tuple(re_pattern.RePattern(**kw) for kw in kws)
+    theirs = tuple(jax_re_pattern.RePattern(**kw) for kw in kws)
+    for rb_start, nof_rb, syms in ((4, 18, [2, 3, 7, 9, 11]), (0, 40, list(range(14)))):
+        np.testing.assert_array_equal(re_pattern.reserved_mask_window(ours, rb_start, nof_rb, syms),
+                                      jax_re_pattern.reserved_mask_window(theirs, rb_start, nof_rb,
+                                                                          syms))
+        assert re_pattern.inclusion_count(ours, rb_start, nof_rb, syms) == \
+            jax_re_pattern.inclusion_count(theirs, rb_start, nof_rb, syms)
+    for row, density in ((1, "three"), (4, "one"), (2, "dot5_odd"), (12, "one")):
+        kw = dict(nof_rb=16, prb_start=2, row=row, k_ref=(0, 2, 4, 6)[:csi_rs.ROW_NOF_KREF[row]],
+                  symbol=5, density=density)
+        assert re_pattern.csi_rs_patterns(csi_rs.CsiRsConfig(**kw)) == tuple(
+            re_pattern.RePattern(**dataclasses.asdict(p))
+            for p in jax_re_pattern.csi_rs_patterns(jax_csi_rs.CsiRsConfig(**kw)))
+    assert dataclasses.asdict(re_pattern.coreset_pattern(0, 24, 1, 2)) == \
+        dataclasses.asdict(jax_re_pattern.coreset_pattern(0, 24, 1, 2))
+
+
+def test_pdcch_mapping_values_equal():
+    """CCE-to-REG mapping, interleaved and not, PRBs and RE indices."""
+    from srsran_projectvtlmo_tpu.ran import pdcch_mapping as jax_map
+    from srsran_projectvtlmo_tpu_torch.ran import pdcch_mapping
+
+    for al in (1, 2, 4, 8):
+        for cce in (0, 1, 3):
+            assert pdcch_mapping.cce_to_reg_non_interleaved(al, cce) == \
+                jax_map.cce_to_reg_non_interleaved(al, cce)
+            for n_rb, dur, l, r, shift in ((48, 1, 6, 2, 0), (48, 2, 6, 2, 5), (96, 3, 3, 2, 7),
+                                           (24, 1, 2, 6, 1)):
+                if (cce + al) * 6 > n_rb * dur:
+                    continue
+                regs = pdcch_mapping.cce_to_reg_interleaved(n_rb, dur, l, r, shift, al, cce)
+                assert regs == jax_map.cce_to_reg_interleaved(n_rb, dur, l, r, shift, al, cce)
+                prbs = pdcch_mapping.pdcch_coreset_prbs(regs, dur, 5 + np.arange(n_rb))
+                assert prbs == jax_map.pdcch_coreset_prbs(regs, dur, 5 + np.arange(n_rb))
+                for a, b in zip(pdcch_mapping.pdcch_re_indices(prbs, dur, 1, 1236),
+                                jax_map.pdcch_re_indices(prbs, dur, 1, 1236)):
+                    np.testing.assert_array_equal(a, b)
+    for bad in ((50, 1, 6, 2, 0), (48, 2, 3, 2, 0)):
+        with pytest.raises(ValueError):
+            pdcch_mapping.cce_to_reg_interleaved(*bad, 1, 0)
+        with pytest.raises(ValueError):
+            jax_map.cce_to_reg_interleaved(*bad, 1, 0)

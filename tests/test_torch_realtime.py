@@ -29,11 +29,13 @@ from srsran_projectvtlmo_tpu.phy import warmup as jax_warmup
 from srsran_projectvtlmo_tpu.ran.modulation import Modulation as JaxModulation
 
 from srsran_projectvtlmo_tpu_torch.fapi.pdus import (
-    CrcIndication, DlTtiRequest, PuschPdu, RxDataIndication, UlTtiRequest)
+    CrcIndication, DlTtiRequest, PdschPdu, PuschPdu, RxDataIndication, TxDataRequest,
+    UlTtiRequest)
 from srsran_projectvtlmo_tpu_torch.models.pusch_rx import (
-    PuschRxConfig, cached_pusch_rx, flatten_tb_bits)
+    PuschRxConfig, cached_pusch_rx, cached_pusch_rx_from_grid, flatten_tb_bits)
 from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import cached_ulsch_tx
 from srsran_projectvtlmo_tpu_torch.ops import prach
+from srsran_projectvtlmo_tpu_torch.phy.dl_slot import get_dl_slot_program
 from srsran_projectvtlmo_tpu_torch.phy.error_handler import UpperPhyErrorHandler
 from srsran_projectvtlmo_tpu_torch.phy.metrics import MetricsHub
 from srsran_projectvtlmo_tpu_torch.phy.prach_buffer import (
@@ -152,20 +154,24 @@ class _LoopbackGateway:
 
 class TestLowerPhyRealtime:
     def test_dl_ul_chains_end_to_end(self):
-        """The UL chain decodes a PUSCH slot, with the JAX UpperPhy's
-        indications; the DL chain hands back the unported DL slot's
-        NotImplementedError as its result."""
+        """The DL chain hands the port's DL slot to the gateway, the JAX
+        UpperPhy's samples within 1e-5 relative RMS; the UL chain decodes a
+        PUSCH slot, with the JAX UpperPhy's indications."""
         cell = CellConfig(nof_rb=24, dft_size=512, numerology=1)
         phy = UpperPhy(cell, device="cpu")
         gw = _LoopbackGateway()
         eh = UpperPhyErrorHandler(slot_duration_s=60.0)
         rt = LowerPhyRealtime(phy, gw, eh, queue_depth=2)
+        dl_pdu = PdschPdu(rnti=0x21, rb_start=2, rb_size=20, modulation=Modulation.QAM16,
+                          target_code_rate=0.5, n_id=1)
+        dl_request = DlTtiRequest(slot=0, pdsch=(dl_pdu,))
+        tbs = get_dl_slot_program(dl_request, cell, "cpu").pdsch_cfgs[0].tbs
+        tx_data = TxDataRequest(slot=0, tb_bits=[
+            np.random.default_rng(5).integers(0, 2, tbs).astype(np.uint8)])
         rt.start()
         try:
-            rt.dl.enqueue((DlTtiRequest(slot=0), None))
-            _, res = rt.dl.wait_result(timeout=60.0)
-            assert isinstance(res, NotImplementedError) and "A10" in str(res)
-            assert not gw.tx
+            rt.dl.enqueue((dl_request, tx_data))
+            _, shape = rt.dl.wait_result(timeout=60.0)
 
             pdu = PuschPdu(rnti=0x21, rb_start=4, rb_size=16, modulation=Modulation.QAM16,
                            target_code_rate=0.5, n_id=1, dmrs_symbols=(2, 11))
@@ -175,11 +181,17 @@ class TestLowerPhyRealtime:
             _, inds = rt.ul.wait_result(timeout=120.0)
         finally:
             rt.stop()
+        assert not isinstance(shape, Exception), shape
+        jphy = jax_upper_phy.UpperPhy(to_jax(cell))
+        _, want = jphy.process_dl_slot(to_jax(dl_request), to_jax(tx_data))
+        assert len(gw.tx) == 1 and shape == gw.tx[0].shape == want.shape
+        err = np.sqrt(np.mean((gw.tx[0] - want) ** 2) / np.mean(want ** 2))
+        assert err < 1e-5, err
+
         assert not isinstance(inds, Exception), inds
         assert [i for i in inds if isinstance(i, CrcIndication)][0].tb_crc_ok
         np.testing.assert_array_equal([i for i in inds if isinstance(i, RxDataIndication)][0]
                                       .tb_bits, tb)
-        jphy = jax_upper_phy.UpperPhy(to_jax(cell))
         compare(jphy.process_ul_slot(to_jax(request), gw.rx_buf), inds)
         assert eh.stats.late_dl == 0 and eh.stats.late_ul == 0
         assert not rt.dl._thread.is_alive() and not rt.ul._thread.is_alive()
@@ -364,3 +376,34 @@ def test_precompile_pusch_one_slot():
     jres = jrx(jnp.asarray(samples[:, None].numpy()))
     for key in ("tb_crc_ok", "cb_crc_ok", "tb_bits_cb"):
         np.testing.assert_array_equal(res[key].numpy(), np.asarray(jres[key]), err_msg=key)
+
+
+def test_warmed_upper_phy_first_ul_slot_builds_no_receiver():
+    """`precompile_pusch` of a PDU's shape builds the FAPI entry point's
+    receiver: a warmed UpperPhy's first `process_ul_slot` finds it cached
+    (no new `cached_pusch_rx_from_grid` miss) and decodes."""
+    pdu = PuschPdu(rnti=0x4601, rb_start=0, rb_size=5, modulation=Modulation.QPSK,
+                   target_code_rate=0.31, n_id=3, dmrs_symbols=(2,), start_symbol=0,
+                   nof_symbols=14)
+    cfg = PuschRxConfig(nof_rb=5, modulation=Modulation.QPSK, target_code_rate=0.31,
+                        nof_rx_ports=1, dft_size=512, numerology=1, dmrs_symbols=(2,),
+                        rnti=0x4601, n_id=3)
+    cell = CellConfig(nof_rb=5, dft_size=512, numerology=1)
+    misses = cached_pusch_rx_from_grid.cache_info().misses
+    precompile_pusch(cfg, 2, device="cpu")
+    assert cached_pusch_rx_from_grid.cache_info().misses - misses == 2  # slot 0 and 1 of a subframe
+    samples, tb = _four_prb_slot(pdu, 3, cfg)
+    warm = cached_pusch_rx_from_grid.cache_info().misses
+    inds = UpperPhy(cell, device="cpu").process_ul_slot(UlTtiRequest(slot=3, pusch=(pdu,)), samples)
+    assert cached_pusch_rx_from_grid.cache_info().misses == warm
+    assert [i for i in inds if isinstance(i, CrcIndication)][0].tb_crc_ok
+    np.testing.assert_array_equal([i for i in inds if isinstance(i, RxDataIndication)][0].tb_bits,
+                                  tb)
+
+
+def _four_prb_slot(pdu, slot: int, cfg):
+    """(samples (1, nsamples, 2), TB bits) of the carrier that `pdu` fills."""
+    c = dataclasses.replace(cfg, slot=slot)
+    tb = np.random.default_rng(slot).integers(0, 2, (1, c.tbs)).astype(np.uint8)
+    _, samples = cached_ulsch_tx(c, torch.device("cpu"))(torch.as_tensor(tb))
+    return samples.numpy(), tb[0]

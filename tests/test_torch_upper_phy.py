@@ -338,8 +338,22 @@ def test_invalid_request_raises():
 
 
 def test_downlink_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A10"):
-        UpperPhy(cell(1), device="cpu").process_dl_slot(None)
+    """The downlink half of the entry point (its name kept from before the DL
+    slot was ported; tests/test_torch_dl_slot.py holds the slots): a DL
+    request that fails FAPI validation raises with the JAX UpperPhy's report."""
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import DlTtiRequest, PdschPdu, TxDataRequest
+
+    pdu = PdschPdu(rnti=0x10, rb_start=20, rb_size=8, modulation=QAM16, target_code_rate=0.5,
+                   nof_layers=2, rv=5)
+    bad = DlTtiRequest(slot=3, pdsch=(pdu,))
+    data = TxDataRequest(slot=4, tb_bits=[])
+    pair = phys(1)
+    with pytest.raises(jax_upper_phy.FapiValidationError) as jerr:
+        pair[0].process_dl_slot(to_jax(bad), to_jax(data))
+    with pytest.raises(FapiValidationError) as terr:
+        pair[1].process_dl_slot(bad, data)
+    assert str(terr.value) == str(jerr.value)
+    assert len(terr.value.report.errors) >= 2
 
 
 # -------------------------------------------------------------- mixed slot --
