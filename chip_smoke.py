@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver and FAPI entry
-point (`UpperPhy.process_ul_slot` and `process_dl_slot`) on an NVIDIA GPU and
+"""Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver, FAPI entry
+point (`UpperPhy.process_ul_slot` and `process_dl_slot`) and scaling layer
+(`parallel/`: `MultiCellUpperPhy` and the sharded paths) on an NVIDIA GPU and
 check them.
 
     python3 chip_smoke.py
@@ -95,7 +96,33 @@ non-zero:
    kernels and stream synchronisations per slot, host ms in the
    `upper_phy.dl_values` span (torch.profiler), and the batch-8
    `DlSlotProgram.run_batched` / `run_stacked` device ms per slot (CUDA
-   events).
+   events);
+21. the scaling layer, `MultiCellUpperPhy(cell, 4, device="cuda")
+   .process_ul_slot`: four north-star cells (rnti 0x4601 + c, n_id c + 1)
+   in one batched receiver call, every TB decoded, the indications equal to
+   four per-cell `UpperPhy` calls and the early-stop launches those of one
+   cell; then first transmissions that fail in all four cells and their
+   retransmissions (rv `MC_RETX_RV`) combined in the batch through each
+   cell's one arena, and the same retransmissions for cells 0-1 in a slot
+   whose other cells send another shape, which moves them to the per-cell
+   path with their history;
+22. `MultiCellUpperPhy.process_dl_slot` on four north-star DL slots of one
+   structure (distinct rnti, n_id and sfn) as one batched call, the bf16 grid
+   bit for bit and the samples within `MC_DL_SAMPLES_REL_RMS` of per-cell
+   `process_dl_slot` on the card; then a set with the last cell's CSI-RS
+   left out, through the per-cell fallback, in the same real-pair layout;
+23. the sharded paths in a one-rank NCCL group (`make_ran_mesh(1, 1)`): the
+   north-star slot through `build_multi_cell_ulsch_tx`, the identity FIR of
+   `fir_filter_overlap_save`, `sharded_ofdm_demodulate` against
+   `ofdm_demodulate` and `build_multi_cell_pusch_rx` (early stop); 76 BG1
+   z=384 codeblocks through `build_sharded_ldpc_decode_es` and
+   `build_sharded_ldpc_decode`, bit for bit against the unsharded kernel;
+24. bench.py's `multi_cell4_dl_aggregate_cell_slot_rate` and
+   `multi_cell4_dl_ul_aggregate_cell_slot_rate` (torch.profiler device time
+   of one `run_stacked` of four DL cells and of the batched 4-cell receiver
+   at 2 iterations), with the back-to-back time and kernels per call and the
+   host ms per `MultiCellUpperPhy` call, beside the card's name and power
+   limit.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -1302,10 +1329,11 @@ def dl_cell():
     return CellConfig(nof_rb=NS_PRB, dft_size=NS_DFT, numerology=1, nof_tx_ports=4)
 
 
-def dl_request(rnti: int, n_id: int, seed: int, ssb_csi: bool = True):
+def dl_request(rnti: int, n_id: int, seed: int, ssb_csi: bool = True, sfn: int = 0,
+               csi_rs: bool = True):
     """(DlTtiRequest, TxDataRequest, DCI bits) of the north-star DL slot for
     one UE, the TB and the DCI drawn from `seed`; without `ssb_csi`, no SSB
-    and no CSI-RS."""
+    and no CSI-RS, without `csi_rs` no CSI-RS; the SSB's PBCH carries `sfn`."""
     from srsran_projectvtlmo_tpu_torch.fapi.pdus import (
         CsiRsPdu, DlTtiRequest, PdcchPdu, PdschPdu, SsbPdu, TxDataRequest)
     from srsran_projectvtlmo_tpu_torch.ops.modulation import Modulation
@@ -1321,9 +1349,12 @@ def dl_request(rnti: int, n_id: int, seed: int, ssb_csi: bool = True):
                      dmrs_symbols=(2,), n_id=n_id,
                      precoding=tuple(tuple((float(c.real), float(c.imag)) for c in row)
                                      for row in DL_W))
-    extra = dict(ssb=(SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=0, half_radio_frame=False),),
-                 csi_rs=(CsiRsPdu(nof_rb=NS_PRB, symbol=13, subcarrier_offset=3),)) \
-        if ssb_csi else {}
+    extra = {}
+    if ssb_csi:
+        extra["ssb"] = (SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=sfn,
+                               half_radio_frame=False),)
+        if csi_rs:
+            extra["csi_rs"] = (CsiRsPdu(nof_rb=NS_PRB, symbol=13, subcarrier_offset=3),)
     req = DlTtiRequest(slot=DL_SLOT, pdcch=(pdcch,), pdsch=(pdsch,), **extra)
     tbs = get_dl_slot_program(req, dl_cell(), "cpu").pdsch_cfgs[0].tbs
     return req, TxDataRequest(slot=DL_SLOT, tb_bits=[rng.integers(0, 2, tbs).astype(np.uint8)]), dci
@@ -1508,6 +1539,403 @@ def phase_dl_timing(phy, req, data, smi: str) -> None:
         "device": torch.cuda.get_device_name(0), "card": smi}))
 
 
+# ------------------------------------------------------- the scaling layer --
+
+#: The multi-cell phases: four cells of the north-star carrier, cell c's UE
+#: at rnti 0x4601 + c, n_id c + 1 (benchmarks/multi_cell_bench.py:54-58).
+MC_CELLS = 4
+#: The redundancy version of the multi-cell retransmissions: 3, as phase
+#: 15's. At this code rate an rv-2 retransmission need not recover what its
+#: first transmission lost: on an H100 one of the four cells stayed
+#: undecoded after combining at rv 2 (ROADMAP Queue C observes the same at
+#: 24 PRB, in JAX and the port).
+MC_RETX_RV = 3
+#: Sharded OFDM demodulation against the unsharded one (tests/test_parallel.py).
+SHARD_RTOL, SHARD_ATOL = 1e-4, 1e-5
+#: DL samples of the batched call against per-cell dispatch, relative RMS.
+MC_DL_SAMPLES_REL_RMS = 1e-6
+
+
+def same_indications(a: list, b: list) -> bool:
+    """Two indication lists equal type by type and field by field."""
+    import dataclasses
+
+    if [type(i).__name__ for i in a] != [type(i).__name__ for i in b]:
+        return False
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, np.ndarray) or isinstance(v, np.ndarray):
+                if u is None or v is None or not np.array_equal(u, v):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def mc_samples(pdus, tbs, noises, gen) -> np.ndarray:
+    """(ncell, 4, nsamples, 2): each cell's PDU from the port's Tx, mixed onto
+    the 4 ports, AWGN at its noise level, OFDM (`carrier_samples`)."""
+    out = []
+    for pdu, tb, noise in zip(pdus, tbs, noises):
+        carrier = torch.zeros((4, 14, NS_PRB * 12), dtype=torch.complex64, device="cuda")
+        add_pusch(carrier, pdu, pusch_layers(pdu, FAPI_SLOT, tb))
+        out.append(carrier_samples(carrier, noise, gen))
+    return np.stack(out)
+
+
+def check_cells(inds: list, tbs: list, label: str) -> None:
+    for c, tb in enumerate(tbs):
+        check_pusch(inds[c], tb, f"{label}, cell {c}")
+
+
+def phase_multi_cell_ul(gen) -> dict:
+    """(21) `MultiCellUpperPhy.process_ul_slot`: four north-star cells in one
+    batched receiver call, equal to four per-cell `UpperPhy` calls; then
+    HARQ: first transmissions that fail (each cell at its first failing
+    level of HARQ_NOISE, as phase 15), retransmissions (rv MC_RETX_RV)
+    combined in the batch, and retransmissions that leave the batch for the
+    per-cell path in a slot where the other cells' PDUs differ."""
+    import dataclasses
+
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    cell = fapi_cell()
+    pdus = [northstar_pdu(rnti=0x4601 + c, n_id=c + 1) for c in range(MC_CELLS)]
+    tbs = [random_tb(pdu_tx_cfg(p, FAPI_SLOT), 1, gen) for p in pdus]
+    samples = mc_samples(pdus, tbs, [0.005] * MC_CELLS, gen)
+    reqs = [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in pdus]
+    mc = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
+    mc.process_ul_slot(reqs, samples)  # builds the receiver, moves its tables
+    label = f"multi-cell UL, {MC_CELLS} north-star cells in one batched call"
+    inds, launches = count_launches(lambda: mc.process_ul_slot(reqs, samples), True, label)
+    check_cells(inds, tbs, label)
+    one = UpperPhy(cell, device="cuda")
+    ref, one_launches = count_launches(lambda: [one.process_ul_slot(reqs[c], samples[c])
+                                                for c in range(MC_CELLS)], True, "per-cell")
+    equal = all(same_indications(inds[c], ref[c]) for c in range(MC_CELLS))
+    print(f"{label}: early-stop launches {launches} per batched call ({one_launches} for "
+          f"{MC_CELLS} per-cell calls); indications equal to per-cell dispatch: {equal}")
+    if not equal or launches != one_launches // MC_CELLS:
+        raise SystemExit(f"{label}: indications differ from per-cell dispatch, or the batch "
+                         f"launched {launches} times, not {one_launches // MC_CELLS}")
+
+    first = [dataclasses.replace(p, harq_id=5) for p in pdus]
+    again = [dataclasses.replace(p, new_data=False, rv=MC_RETX_RV) for p in first]
+    # Each cell's first transmission at the first noise level (of
+    # HARQ_NOISE) where it fails, those samples kept.
+    probe, tried = MultiCellUpperPhy(cell, MC_CELLS, device="cuda"), []
+    levels, slot_a = [None] * MC_CELLS, [None] * MC_CELLS
+    first_reqs = [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in first]
+    for noise in HARQ_NOISE:
+        if all(lv is not None for lv in levels):
+            break
+        samples_n = mc_samples(first, tbs, [noise] * MC_CELLS, gen)
+        got = probe.process_ul_slot(first_reqs, samples_n)
+        tried.append(round(noise, 5))
+        for c in range(MC_CELLS):
+            if levels[c] is None and not indications(got[c], "CrcIndication")[0].tb_crc_ok:
+                levels[c], slot_a[c] = noise, samples_n[c]
+    if any(lv is None for lv in levels):
+        raise SystemExit(f"multi-cell HARQ: a first transmission decoded at every noise level "
+                         f"{tried}")
+    del probe
+    slot_a = np.stack(slot_a)
+    slot_b = mc_samples(again, tbs, levels, gen)
+    # Cells 2-3 of the path-change slot send new data of another shape.
+    other = [northstar_pdu(rnti=0x4601 + c, n_id=c + 1, rb_size=NS_PRB // 2, harq_id=6)
+             for c in range(2, MC_CELLS)]
+    other_tbs = [random_tb(pdu_tx_cfg(p, FAPI_SLOT), 1, gen) for p in other]
+    slot_c = np.concatenate([slot_b[:2], mc_samples(other, other_tbs, [0.005] * 2, gen)])
+    out = {"multi_cell_ul": launches}
+    for name, pdus_b, samples_b, want in (
+            ("in the batch", again, slot_b, tbs),
+            ("moved to the per-cell path", again[:2] + other, slot_c, tbs[:2] + other_tbs)):
+        phy = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
+        failed = phy.process_ul_slot(first_reqs, slot_a)
+        if any(indications(i, "CrcIndication")[0].tb_crc_ok for i in failed):
+            raise SystemExit("multi-cell HARQ: a first transmission decoded")
+        if [p.nof_reserved for p in phy.harq_pools] != [1] * MC_CELLS:
+            raise SystemExit(f"multi-cell HARQ: reservations {[p.nof_reserved for p in phy.harq_pools]}")
+        label = (f"multi-cell HARQ, retransmissions (rv {MC_RETX_RV}) {name}, each cell at "
+                 f"its first failing noise level {[round(lv, 5) for lv in levels]}")
+        inds, n = count_launches(lambda: phy.process_ul_slot(
+            [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in pdus_b], samples_b), True, label)
+        check_cells(inds, want, label)
+        print(f"{label}: kernel launches {n}; reservations after the pass "
+              f"{[p.nof_reserved for p in phy.harq_pools]}")
+        out[f"multi_cell_harq_{'batch' if name == 'in the batch' else 'moved'}"] = n
+    alone = UpperPhy(cell, device="cuda").process_ul_slot(
+        UlTtiRequest(slot=FAPI_SLOT, pusch=(again[0],)), slot_b[0])
+    alone_ok = indications(alone, "CrcIndication")[0].tb_crc_ok
+    print(f"cell 0's retransmission alone, without the arena's history: tb_crc_ok {alone_ok}")
+    if alone_ok:
+        raise SystemExit("multi-cell HARQ: the retransmission decodes without its history")
+    return out
+
+
+def mc_dl_requests(csi_rs_last: bool = True):
+    """Four cells' north-star DL slots, cell c's UE at rnti 0x4601 + c, n_id
+    c + 1 and its SSB at sfn c; the last cell without CSI-RS unless
+    `csi_rs_last`."""
+    made = [dl_request(0x4601 + c, c + 1, seed=220 + c, sfn=c,
+                       csi_rs=csi_rs_last or c < MC_CELLS - 1) for c in range(MC_CELLS)]
+    return [m[0] for m in made], [m[1] for m in made]
+
+
+def phase_multi_cell_dl(smi: str) -> None:
+    """(22) `MultiCellUpperPhy.process_dl_slot`: four north-star DL slots of
+    one structure as one batched call, against per-cell `process_dl_slot`
+    on the card (bf16 grid bit for bit, samples to MC_DL_SAMPLES_REL_RMS);
+    then a set with the last cell's CSI-RS left out, which takes the
+    per-cell fallback and must return the same real-pair layout."""
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import UpperPhy
+
+    cell = dl_cell()
+    mc = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
+    one = UpperPhy(cell, device="cuda")
+    nsamp = ofdm.slot_sample_count(NS_DFT, 1, DL_SLOT % 2)
+    for name, reqs_datas in (("batched", mc_dl_requests()),
+                             ("fallback (cell 3 without CSI-RS)", mc_dl_requests(False))):
+        reqs, datas = reqs_datas
+        grid, samples = mc.process_dl_slot(reqs, datas)
+        torch.cuda.synchronize()
+        shapes = (tuple(grid.shape), tuple(samples.shape))
+        want = ((MC_CELLS, 4, 14, NS_PRB * 12, 2), (MC_CELLS, 4, nsamp, 2))
+        grid_equal, rel = True, 0.0
+        for c in range(MC_CELLS):
+            g, s = one.process_dl_slot(reqs[c], datas[c], fetch=False)
+            grid_equal = grid_equal and torch.equal(grid[c], g)
+            rel = max(rel, float(((samples[c] - s).pow(2).mean() / s.pow(2).mean()).sqrt()))
+        print(f"multi-cell DL, {MC_CELLS} north-star cells, {name}: grid {shapes[0]} "
+              f"{grid.dtype}, samples {shapes[1]}; bf16 grid equal to per-cell dispatch: "
+              f"{grid_equal}; samples relative RMS {rel:.3g} (bound {MC_DL_SAMPLES_REL_RMS}); "
+              f"{smi}")
+        if shapes != want or grid.dtype != torch.bfloat16 or not grid_equal \
+                or not rel <= MC_DL_SAMPLES_REL_RMS:
+            raise SystemExit(f"multi-cell DL {name}: differs from per-cell dispatch")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(gen) -> dict:
+    """(23) The sharded paths in a one-rank NCCL group (the `dryrun_multichip`
+    flow of __graft_entry__.py:59-136 through the port): the north-star slot
+    through `build_multi_cell_ulsch_tx` and, after the identity FIR of
+    `fir_filter_overlap_save`, `build_multi_cell_pusch_rx` (early stop); the
+    FIR's output equal to its input and `sharded_ofdm_demodulate` within
+    SHARD_RTOL/ATOL of `ops.ofdm.ofdm_demodulate` at DFT 4096; 76 BG1 z=384
+    codeblocks through `build_sharded_ldpc_decode_es` and
+    `build_sharded_ldpc_decode`, bit for bit against the unsharded kernel."""
+    import torch.distributed as dist
+
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import flatten_tb_bits
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.ops.crc import crc_host
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.decode_cuda import (
+        ldpc_decode_cuda, ldpc_decode_es_cuda)
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.encode import ldpc_encode
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import BaseGraph
+    from srsran_projectvtlmo_tpu_torch.parallel import (
+        build_multi_cell_pusch_rx, build_multi_cell_ulsch_tx)
+    from srsran_projectvtlmo_tpu_torch.parallel.cb_shard import (
+        build_sharded_ldpc_decode, build_sharded_ldpc_decode_es)
+    from srsran_projectvtlmo_tpu_torch.parallel.distributed import backend_for, make_ran_mesh
+    from srsran_projectvtlmo_tpu_torch.parallel.sample_shard import (
+        fir_filter_overlap_save, shard_samples, sharded_ofdm_demodulate)
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend_for("cuda"), init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        rm = make_ran_mesh(1, 1, device="cuda")
+        mesh = rm.mesh
+        print(f"process group: {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+              f"{rm.nof_cells} cell x {rm.nof_sp} sp ({type(mesh).__name__})")
+        cfg = northstar_cfg(6)
+        tb = random_tb(cfg, 1, gen)
+        layers, _ = build_multi_cell_ulsch_tx(cfg, mesh, device="cuda")(tb)
+        samples = slot_samples(to_cplx(layers), cfg, gen)  # (1, 4, nsamples, 2)
+        taps = np.zeros(5, np.float32)
+        taps[0] = 1.0
+        padded = shard_samples(samples, mesh, "sp", batch_axis="cell")
+        filt = fir_filter_overlap_save(padded, taps, mesh, "sp", batch_axis="cell")
+        fir_err = float((filt - padded).abs().max())
+        grid = sharded_ofdm_demodulate(filt, cfg.nof_subc, NS_DFT, 1, mesh, axis="sp",
+                                       batch_axis="cell")
+        want = ofdm.ofdm_demodulate(samples, cfg.nof_subc, NS_DFT, 1, 0)
+        demod_err = float((grid - want).abs().max())
+        demod_ok = bool(torch.allclose(grid, want, rtol=SHARD_RTOL, atol=SHARD_ATOL))
+        rx = build_multi_cell_pusch_rx(cfg, mesh, device="cuda")
+        filt = filt[..., :samples.shape[-2], :]
+        rx(filt)
+        label = (f"sharded north-star slot (multi_cell rx over the FIR output, one "
+                 f"{dist.get_backend()} rank)")
+        out, rx_launches = count_launches(lambda: rx(filt), True, label)
+        bits = flatten_tb_bits(out["tb_bits_cb"].cpu().numpy(), cfg.tbs)
+        errors = int((bits != tb.cpu().numpy()).sum())
+        print(f"{label}: tb_crc_ok {out['tb_crc_ok'].tolist()}, TB bit errors {errors}, "
+              f"iterations max {int(out['ldpc_iterations'].max())}, kernel launches "
+              f"{rx_launches}; identity FIR max |out - in| {fir_err:.3g}; sharded demod "
+              f"max |err| {demod_err:.3g} (rtol {SHARD_RTOL}, atol {SHARD_ATOL})")
+        if not (bool(out["tb_crc_ok"].all()) and errors == 0 and fir_err == 0.0 and demod_ok):
+            raise SystemExit(f"{label}: the sharded lower PHY or the decode failed")
+
+        seg = cfg.segmentation
+        z, k = seg.lifting_size, 22 * seg.lifting_size
+        rng = np.random.default_rng(23)
+        payload = rng.integers(0, 2, (seg.nof_cb, k - 24)).astype(np.uint8)
+        info = np.concatenate([payload, np.stack([crc_host(p, "CRC24B") for p in payload])], -1)
+        cw = ldpc_encode(torch.as_tensor(info, device="cuda"), BaseGraph.BG1, z)[:, 2 * z:]
+        base = (1 - 2 * cw.to(torch.int32)) * 8
+        flip = torch.rand(base.shape, generator=gen, device="cuda") < 0.05
+        llr = torch.where(flip, -base // 2, base).to(torch.int8).contiguous()
+        launches = {}
+        for name, sharded, plain in (
+                ("ldpc_decode_es",
+                 build_sharded_ldpc_decode_es(mesh, BaseGraph.BG1, z, "CRC24B", k, 6, axis="sp"),
+                 lambda: ldpc_decode_es_cuda(llr, BaseGraph.BG1, z, "CRC24B", k,
+                                             nof_iterations=6)),
+                ("ldpc_decode", build_sharded_ldpc_decode(mesh, BaseGraph.BG1, z, 6, axis="sp"),
+                 lambda: ldpc_decode_cuda(llr, BaseGraph.BG1, z, nof_iterations=6))):
+            label = f"CB-sharded {name}, {seg.nof_cb} BG1 z={z} codeblocks, axis sp"
+            got, launches[name] = count_launches(lambda: sharded(llr), name == "ldpc_decode_es",
+                                                 label)
+            want = plain()
+            equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            hard_ok = bool(torch.equal(got[0].cpu(), torch.as_tensor(info)))
+            print(f"{label}: outputs equal to the unsharded kernel {equal}, hard bits == info "
+                  f"{hard_ok}, kernel launches {launches[name]}" +
+                  (f", iterations max {int(got[3].max())}" if len(got) == 4 else ""))
+            if not (all(equal) and hard_ok):
+                raise SystemExit(f"{label}: differs from the unsharded kernel")
+    finally:
+        dist.destroy_process_group()
+    return {"sharded_rx": rx_launches, "sharded_es": launches["ldpc_decode_es"],
+            "sharded_fixed": launches["ldpc_decode"]}
+
+
+def profile_call(fn, calls: int = 3):
+    """(device kernel ms per call, kernels per call) of fn() from
+    torch.profiler; ("not measured", ...) when it records no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels, _ = device_events(prof)
+    if not kernels:
+        return "not measured", "not measured"
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls, len(kernels) / calls
+
+
+def host_ms(fn, reps: int = 12) -> list[float]:
+    """Host ms of each of `reps` calls of fn(), each ending on the host."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_multi_cell_timing(smi: str) -> None:
+    """(24) bench.py's multi-cell metrics (`child_multicell`, bench.py:294-400,
+    ncells 4, 2 LDPC iterations): the aggregate DL rate, cells over the
+    device seconds of one `run_stacked` of four north-star DL slots, and the
+    DL + UL rate, 2 x cells over DL + UL device seconds, UL being the
+    batched dynamic receiver (demodulation included) on random samples with
+    the second half of the cells carrying HARQ history.  Device seconds are
+    torch.profiler's kernel time per call; beside them the back-to-back
+    CUDA-event time per call, the kernels per call, and the host ms per
+    `MultiCellUpperPhy.process_dl_slot` / `process_ul_slot` (median and range
+    of 12)."""
+    import dataclasses
+
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import cached_pusch_rx_from_grid
+    from srsran_projectvtlmo_tpu_torch.ops import ofdm
+    from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
+    from srsran_projectvtlmo_tpu_torch.phy import dl_slot
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import (
+        ExpertPhyConfig, pusch_rx_key, pusch_sequences)
+
+    reqs, datas = mc_dl_requests()
+    cell = dl_cell()
+    program = dl_slot.get_dl_slot_program(reqs[0], cell, "cuda")
+    stacked = program.stack_values([
+        program.value_args(r, dl_slot.build_dl_slot_inputs(program, r, d, DL_SLOT))
+        for r, d in zip(reqs, datas)])
+    dl_call = lambda: program.run_stacked(DL_SLOT, stacked)
+    dl_dev, dl_kernels = profile_call(dl_call)
+    dl_b2b = cuda_time_ms(dl_call, reps=10)
+    mc_dl = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
+    dl_host = host_ms(lambda: mc_dl.process_dl_slot(reqs, datas, fetch=True))
+
+    ul_cell = fapi_cell()
+    base = northstar_cfg(2, dynamic_params=True)
+    ues = [dataclasses.replace(base, dynamic_params=False, rnti=0x4601 + c, n_id=c + 1,
+                               slot=DL_SLOT) for c in range(MC_CELLS)]
+    rx = cached_pusch_rx_from_grid(pusch_rx_key(ues[0]), "cuda")
+    seqs = [pusch_sequences(u) for u in ues]
+    ref_in = torch.as_tensor(np.stack([s[0] for s in seqs]), device="cuda")
+    signs_in = torch.as_tensor(np.stack([s[2] for s in seqs]), device="cuda")
+    rng = np.random.default_rng(0)
+    nsamp = ofdm.slot_sample_count(NS_DFT, 1, 0)
+    x = torch.as_tensor(rng.normal(size=(MC_CELLS, 4, nsamp, 2)).astype(np.float32) * 0.3,
+                        device="cuda")
+    seg = base.segmentation
+    harq = rng.integers(-20, 20, size=(MC_CELLS, seg.nof_cb, seg.nof_cw_bits_per_cb))
+    harq[:MC_CELLS // 2] = 0
+    harq_in = torch.as_tensor(harq.astype(np.int8), device="cuda")
+
+    def ul_call():
+        grid = ofdm.ofdm_demodulate(x, NS_PRB * 12, NS_DFT, 1, 0)
+        return rx(grid, harq_in, ref_in, signs_in)["tb_crc_ok"]
+
+    ul_dev, ul_kernels = profile_call(ul_call)
+    ul_b2b = cuda_time_ms(ul_call, reps=10)
+    pdus = [northstar_pdu(rnti=0x4601 + c, n_id=c + 1) for c in range(MC_CELLS)]
+    mc_ul = MultiCellUpperPhy(ul_cell, MC_CELLS, expert=ExpertPhyConfig(2), device="cuda")
+    ul_reqs = [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in pdus]
+    ul_samples = x.cpu().numpy()
+    ul_host = host_ms(lambda: mc_ul.process_ul_slot(ul_reqs, ul_samples))
+    spread = lambda ms: {"median": float(np.median(ms)), "min": min(ms), "max": max(ms)}
+    if isinstance(dl_dev, str) or isinstance(ul_dev, str):
+        print(f"multi-cell timing: device time not measured (no device events); {smi}")
+        return
+    dl_rate = MC_CELLS / (dl_dev / 1e3)
+    metric_line(f"multi_cell{MC_CELLS}_dl_aggregate_cell_slot_rate", dl_rate,
+                f"cell-slots/s device-bound ({MC_CELLS} north-star DL cells per run_stacked, "
+                f"torch.profiler kernel time)", vs_baseline=dl_rate / 2000.0,
+                device_ms_per_call=dl_dev, back_to_back_ms_per_call=dl_b2b,
+                kernels_per_call=dl_kernels, host_ms_per_process_dl_slot=spread(dl_host),
+                card=smi)
+    rate = 2 * MC_CELLS / ((dl_dev + ul_dev) / 1e3)
+    metric_line(f"multi_cell{MC_CELLS}_dl_ul_aggregate_cell_slot_rate", rate,
+                f"cell-slots/s device-bound ({MC_CELLS} DL + {MC_CELLS} UL per call pair, "
+                f"2 LDPC iterations, HARQ history in half the UL rows)",
+                vs_baseline=rate / 2000.0, dl_device_ms_per_call=dl_dev,
+                ul_device_ms_per_call=ul_dev, ul_back_to_back_ms_per_call=ul_b2b,
+                ul_kernels_per_call=ul_kernels, host_ms_per_process_ul_slot=spread(ul_host),
+                card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1548,6 +1976,15 @@ def main() -> int:
     fapi.update(phase_dl_loopback())
     print(json.dumps({"fapi_ldpc_decode_es_launches_per_call": fapi}))
     phase_dl_timing(dl_phy, dl_req, dl_data, smi)
+    scaling = phase_multi_cell_ul(gen)
+    phase_multi_cell_dl(smi)
+    scaling.update(phase_sharded(gen))
+    print(json.dumps({"scaling_launches_per_call": scaling}))
+    phase_multi_cell_timing(smi)
+    # The kernels' rows count the main path's launches and those of the
+    # multi-cell and sharded calls.
+    es_launches += sum(n for k, n in scaling.items() if k != "sharded_fixed")
+    fx_launches += scaling["sharded_fixed"]
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
             ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]

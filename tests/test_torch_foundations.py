@@ -40,7 +40,8 @@ _MODULES = ("models.pusch_rx", "models.sch_config", "models.sch_tx", "models.uls
             "phy.pucch", "phy.realtime", "phy.upper_phy", "phy.warmup", "ran.prach_config",
             "ran.prach_cyclic_shifts", "ran.prach_preamble", "ops.polar.interleave", "ops.csi_rs",
             "ran.re_pattern", "ran.pdcch_mapping", "phy.pbch", "phy.pdcch", "models.pdsch_tx",
-            "phy.dl_slot")
+            "phy.dl_slot", "parallel.distributed", "parallel.mesh", "parallel.multi_cell",
+            "parallel.multi_cell_phy", "parallel.cb_shard", "parallel.sample_shard")
 _FOREIGN = ("jax", "srsran_projectvtlmo_tpu")
 
 

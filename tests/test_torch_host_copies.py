@@ -4,7 +4,8 @@ package's host modules (`ran/ldpc_params`, `ran/modulation`, `ran/sch`,
 for the uplink FAPI entry point `fapi/pdus`, `fapi/validators`,
 `ran/prach_preamble`, `ran/prach_cyclic_shifts`, `ran/prach_config`,
 `ops/low_papr`, `phy/error_handler`, `phy/metrics`; for the downlink slot
-`ran/re_pattern`, `ran/pdcch_mapping`, `ops/csi_rs`) and of the base-graph,
+`ran/re_pattern`, `ran/pdcch_mapping`, `ops/csi_rs`; for the scaling layer
+`parallel/sample_shard._demod_plan`) and of the base-graph,
 polar, low-PAPR and PRACH data files, so that it imports nothing of the JAX
 package.  Each copy is held equal to its original here, value by value, and
 the uplink and downlink copies also code by code (their docstrings aside).
@@ -390,3 +391,36 @@ def test_pdcch_mapping_values_equal():
             pdcch_mapping.cce_to_reg_interleaved(*bad, 1, 0)
         with pytest.raises(ValueError):
             jax_map.cce_to_reg_interleaved(*bad, 1, 0)
+
+
+def _function_code(path: Path, name: str) -> str:
+    """One top-level function's syntax tree without its docstring."""
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    if isinstance(fn.body[0], ast.Expr) and isinstance(fn.body[0].value, ast.Constant):
+        fn.body = fn.body[1:]
+    return ast.dump(fn)
+
+
+@pytest.mark.parametrize("args", [(3872, 8, 256, 1, 0, "normal"), (3872, 4, 256, 1, 1, "normal"),
+                                  (61440, 4, 4096, 1, 0, "normal"), (3840, 4, 256, 2, 0, "extended"),
+                                  (3872, 16, 256, 1, 0, "normal")])
+def test_sample_shard_demod_plan_equal(args):
+    """`parallel/sample_shard._demod_plan`, the one host function the port
+    copies from the JAX module (which imports jax): the same code and the
+    same tables, or the same error when the halo exceeds a shard."""
+    from srsran_projectvtlmo_tpu.parallel import sample_shard as jax_sample_shard
+    from srsran_projectvtlmo_tpu_torch.parallel import sample_shard
+
+    rel = Path("parallel") / "sample_shard.py"
+    assert _function_code(REPO / "srsran_projectvtlmo_tpu_torch" / rel, "_demod_plan") == \
+        _function_code(REPO / "srsran_projectvtlmo_tpu" / rel, "_demod_plan")
+    try:
+        want = jax_sample_shard._demod_plan(*args)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=str(e)):
+            sample_shard._demod_plan(*args)
+        return
+    got = sample_shard._demod_plan(*args)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)

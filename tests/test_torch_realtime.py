@@ -45,6 +45,7 @@ from srsran_projectvtlmo_tpu_torch.phy.realtime import (
 from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig, UpperPhy
 from srsran_projectvtlmo_tpu_torch.phy.warmup import precompile_pusch, slots_per_frame
 from srsran_projectvtlmo_tpu_torch.ran.modulation import Modulation
+from tests.test_torch_parallel import run_isolated
 from tests.test_torch_upper_phy import compare, pusch_slot, to_jax
 
 
@@ -152,6 +153,17 @@ class _LoopbackGateway:
         return self.rx_buf
 
 
+def jax_dl_ul_reference(payload):
+    """The JAX UpperPhy's DL samples and UL indications for
+    `test_dl_ul_chains_end_to_end`, computed in a fresh interpreter
+    (`run_isolated`): a long-lived worker can die of the known native
+    XLA:CPU crash inside these compiles."""
+    cell, dl_request, tx_data, request, samples = payload
+    jphy = jax_upper_phy.UpperPhy(to_jax(cell))
+    _, want = jphy.process_dl_slot(to_jax(dl_request), to_jax(tx_data))
+    return np.asarray(want), jphy.process_ul_slot(to_jax(request), samples)
+
+
 class TestLowerPhyRealtime:
     def test_dl_ul_chains_end_to_end(self):
         """The DL chain hands the port's DL slot to the gateway, the JAX
@@ -182,8 +194,8 @@ class TestLowerPhyRealtime:
         finally:
             rt.stop()
         assert not isinstance(shape, Exception), shape
-        jphy = jax_upper_phy.UpperPhy(to_jax(cell))
-        _, want = jphy.process_dl_slot(to_jax(dl_request), to_jax(tx_data))
+        want, jinds = run_isolated("tests.test_torch_realtime:jax_dl_ul_reference",
+                                   (cell, dl_request, tx_data, request, gw.rx_buf))
         assert len(gw.tx) == 1 and shape == gw.tx[0].shape == want.shape
         err = np.sqrt(np.mean((gw.tx[0] - want) ** 2) / np.mean(want ** 2))
         assert err < 1e-5, err
@@ -192,7 +204,7 @@ class TestLowerPhyRealtime:
         assert [i for i in inds if isinstance(i, CrcIndication)][0].tb_crc_ok
         np.testing.assert_array_equal([i for i in inds if isinstance(i, RxDataIndication)][0]
                                       .tb_bits, tb)
-        compare(jphy.process_ul_slot(to_jax(request), gw.rx_buf), inds)
+        compare(jinds, inds)
         assert eh.stats.late_dl == 0 and eh.stats.late_ul == 0
         assert not rt.dl._thread.is_alive() and not rt.ul._thread.is_alive()
 
