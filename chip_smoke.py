@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's UL-SCH transmitter, PUSCH receiver, FAPI entry
-point (`UpperPhy.process_ul_slot` and `process_dl_slot`) and scaling layer
-(`parallel/`: `MultiCellUpperPhy` and the sharded paths) on an NVIDIA GPU and
+point (`UpperPhy.process_ul_slot` and `process_dl_slot`), scaling layer
+(`parallel/`: `MultiCellUpperPhy` and the sharded paths), entry module, app
+(`apps.gnb_sim`), split-7.2 fronthaul and lower PHY on an NVIDIA GPU and
 check them.
 
     python3 chip_smoke.py
@@ -111,18 +112,38 @@ non-zero:
    bit for bit and the samples within `MC_DL_SAMPLES_REL_RMS` of per-cell
    `process_dl_slot` on the card; then a set with the last cell's CSI-RS
    left out, through the per-cell fallback, in the same real-pair layout;
-23. the sharded paths in a one-rank NCCL group (`make_ran_mesh(1, 1)`): the
-   north-star slot through `build_multi_cell_ulsch_tx`, the identity FIR of
+23. the sharded paths in a one-rank NCCL group (`make_ran_mesh(1, 1)`):
+   the port's entry module, `entry.dryrun_multichip(1)` (the north-star
+   slot through `build_ulsch_tx_slot`, the identity FIR of
    `fir_filter_overlap_save`, `sharded_ofdm_demodulate` against
-   `ofdm_demodulate` and `build_multi_cell_pusch_rx` (early stop); 76 BG1
-   z=384 codeblocks through `build_sharded_ldpc_decode_es` and
-   `build_sharded_ldpc_decode`, bit for bit against the unsharded kernel;
+   `ofdm_demodulate`, `build_pusch_rx_from_grid` with early stop, and one
+   codeword's codeblocks through `build_sharded_ldpc_decode_es` against the
+   unsharded kernel), `build_multi_cell_ulsch_tx` and
+   `build_multi_cell_pusch_rx` on the same slot, and `entry.entry()` on a
+   high-SNR slot of its own configuration; 76 BG1 z=384 codeblocks through
+   `build_sharded_ldpc_decode_es` and `build_sharded_ldpc_decode`, bit for
+   bit against the unsharded kernel;
 24. bench.py's `multi_cell4_dl_aggregate_cell_slot_rate` and
    `multi_cell4_dl_ul_aggregate_cell_slot_rate` (torch.profiler device time
    of one `run_stacked` of four DL cells and of the batched 4-cell receiver
    at 2 iterations), with the back-to-back time and kernels per call and the
    host ms per `MultiCellUpperPhy` call, beside the card's name and power
-   limit.
+   limit;
+25. the port's app, `apps.gnb_sim.main`, in this process: the `--northstar`
+   profile for 8 slots (SSB at slot 0, PRACH at slot 4) with every PUSCH CRC,
+   PUCCH F1, the PRACH and every pipelined DL slot passing and 2 early-stop
+   launches per PUSCH PDU, and one JSON line of the host ms per DL+UL slot
+   pair over slots 2-7 (from its trace); then the default profile, streaming,
+   traced, its DL IQ recorded and read back by `FileIqSource`;
+26. the split-7.2 fronthaul and the lower PHY: the north-star DL slot of
+   phase 18 through `bfp_compress` / `pack_prbs` on the card, U-plane,
+   C-plane, eCPRI and VLAN framing and back through the sequence-id and
+   rx-window checkers to `unpack_prbs` / `bfp_decompress` (EVM < 1% per
+   port, no frame lost, a dropped frame detected), with one JSON line of the
+   compress time per slot (CUDA events) and the host framing time; a
+   north-star UL slot through `LoopbackGateway` and `LowerPhy.run_ul_slot`
+   (CRC OK, 2 early-stop launches) and `LowerPhy.run_dl_slot`'s amplitude
+   metrics; the native host library built and in use.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -1729,17 +1750,26 @@ def free_port() -> int:
 
 
 def phase_sharded(gen) -> dict:
-    """(23) The sharded paths in a one-rank NCCL group (the `dryrun_multichip`
-    flow of __graft_entry__.py:59-136 through the port): the north-star slot
-    through `build_multi_cell_ulsch_tx` and, after the identity FIR of
-    `fir_filter_overlap_save`, `build_multi_cell_pusch_rx` (early stop); the
-    FIR's output equal to its input and `sharded_ofdm_demodulate` within
-    SHARD_RTOL/ATOL of `ops.ofdm.ofdm_demodulate` at DFT 4096; 76 BG1 z=384
+    """(23) The sharded paths in a one-rank NCCL group: `entry.dryrun_multichip(1)`
+    (the port's `dryrun_multichip` of __graft_entry__.py:33-177: the
+    north-star slot through `build_ulsch_tx_slot`, the identity FIR of
+    `fir_filter_overlap_save`, `sharded_ofdm_demodulate` and
+    `build_pusch_rx_from_grid` with early stop, then the codeblocks of one
+    codeword through `build_sharded_ldpc_decode_es`), with the FIR's output
+    equal to its input, the sharded demodulation within SHARD_RTOL/ATOL of
+    `ops.ofdm.ofdm_demodulate` at DFT 4096, every TB bit back and the
+    CB-sharded hard bits equal to the unsharded kernel's and to the info
+    bits; `build_multi_cell_ulsch_tx` equal to the unsharded transmitter and
+    `build_multi_cell_pusch_rx` decoding the FIR output; `entry.entry()` on
+    a high-SNR slot of its own config (every TB passes) and on its noise
+    example (none does); then 76 BG1 z=384
     codeblocks through `build_sharded_ldpc_decode_es` and
     `build_sharded_ldpc_decode`, bit for bit against the unsharded kernel."""
     import torch.distributed as dist
 
+    from srsran_projectvtlmo_tpu_torch import entry
     from srsran_projectvtlmo_tpu_torch.models.pusch_rx import flatten_tb_bits
+    from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import build_ulsch_tx_slot
     from srsran_projectvtlmo_tpu_torch.ops import ofdm
     from srsran_projectvtlmo_tpu_torch.ops.crc import crc_host
     from srsran_projectvtlmo_tpu_torch.ops.ldpc.decode_cuda import (
@@ -1751,9 +1781,6 @@ def phase_sharded(gen) -> dict:
     from srsran_projectvtlmo_tpu_torch.parallel.cb_shard import (
         build_sharded_ldpc_decode, build_sharded_ldpc_decode_es)
     from srsran_projectvtlmo_tpu_torch.parallel.distributed import backend_for, make_ran_mesh
-    from srsran_projectvtlmo_tpu_torch.parallel.sample_shard import (
-        fir_filter_overlap_save, shard_samples, sharded_ofdm_demodulate)
-    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
 
     torch.cuda.set_device(0)
     dist.init_process_group(backend_for("cuda"), init_method=f"tcp://127.0.0.1:{free_port()}",
@@ -1763,34 +1790,63 @@ def phase_sharded(gen) -> dict:
         mesh = rm.mesh
         print(f"process group: {dist.get_backend()}, world {dist.get_world_size()}, mesh "
               f"{rm.nof_cells} cell x {rm.nof_sp} sp ({type(mesh).__name__})")
-        cfg = northstar_cfg(6)
-        tb = random_tb(cfg, 1, gen)
-        layers, _ = build_multi_cell_ulsch_tx(cfg, mesh, device="cuda")(tb)
-        samples = slot_samples(to_cplx(layers), cfg, gen)  # (1, 4, nsamples, 2)
-        taps = np.zeros(5, np.float32)
-        taps[0] = 1.0
-        padded = shard_samples(samples, mesh, "sp", batch_axis="cell")
-        filt = fir_filter_overlap_save(padded, taps, mesh, "sp", batch_axis="cell")
-        fir_err = float((filt - padded).abs().max())
-        grid = sharded_ofdm_demodulate(filt, cfg.nof_subc, NS_DFT, 1, mesh, axis="sp",
-                                       batch_axis="cell")
-        want = ofdm.ofdm_demodulate(samples, cfg.nof_subc, NS_DFT, 1, 0)
-        demod_err = float((grid - want).abs().max())
-        demod_ok = bool(torch.allclose(grid, want, rtol=SHARD_RTOL, atol=SHARD_ATOL))
-        rx = build_multi_cell_pusch_rx(cfg, mesh, device="cuda")
-        filt = filt[..., :samples.shape[-2], :]
-        rx(filt)
-        label = (f"sharded north-star slot (multi_cell rx over the FIR output, one "
-                 f"{dist.get_backend()} rank)")
-        out, rx_launches = count_launches(lambda: rx(filt), True, label)
+        label = f"entry.dryrun_multichip(1) (one {dist.get_backend()} rank)"
+        res, rx_launches = count_launches(lambda: entry.dryrun_multichip(1), True, label)
+        cfg, out = res["cfg"], res["rx"]
+        fir_err = float((res["filtered"] - res["padded"]).abs().max())
+        want = ofdm.ofdm_demodulate(res["samples"], cfg.nof_subc, NS_DFT, 1, 0)
+        demod_err = float((res["grid"] - want).abs().max())
+        demod_ok = bool(torch.allclose(res["grid"], want, rtol=SHARD_RTOL, atol=SHARD_ATOL))
         bits = flatten_tb_bits(out["tb_bits_cb"].cpu().numpy(), cfg.tbs)
-        errors = int((bits != tb.cpu().numpy()).sum())
+        errors = int((bits != res["tb"].cpu().numpy()).sum())
+        seg = cfg.segmentation
+        unsharded = ldpc_decode_es_cuda(res["llrs"], seg.base_graph, seg.lifting_size, "CRC24B",
+                                        22 * seg.lifting_size, nof_iterations=6)[0]
+        cb_equal = bool(torch.equal(res["hard_cb"], unsharded))
+        cb_info = bool((res["hard_cb"].cpu().numpy() == res["info_cb"]).all())
         print(f"{label}: tb_crc_ok {out['tb_crc_ok'].tolist()}, TB bit errors {errors}, "
-              f"iterations max {int(out['ldpc_iterations'].max())}, kernel launches "
-              f"{rx_launches}; identity FIR max |out - in| {fir_err:.3g}; sharded demod "
-              f"max |err| {demod_err:.3g} (rtol {SHARD_RTOL}, atol {SHARD_ATOL})")
-        if not (bool(out["tb_crc_ok"].all()) and errors == 0 and fir_err == 0.0 and demod_ok):
-            raise SystemExit(f"{label}: the sharded lower PHY or the decode failed")
+              f"iterations max {int(out['ldpc_iterations'].max())}, early-stop launches "
+              f"{rx_launches} (receiver and CB-sharded decode); identity FIR max |out - in| "
+              f"{fir_err:.3g}; sharded demod max |err| {demod_err:.3g} (rtol {SHARD_RTOL}, atol "
+              f"{SHARD_ATOL}); {res['llrs'].shape[0]} CB-sharded codeblocks: equal to the "
+              f"unsharded kernel {cb_equal}, hard bits == info {cb_info}")
+        if not (bool(out["tb_crc_ok"].all()) and errors == 0 and fir_err == 0.0 and demod_ok
+                and cb_equal and cb_info):
+            raise SystemExit(f"{label}: the sharded lower PHY or a decode failed")
+
+        # The cell-axis builders on the same slot: the transmitter equal to
+        # the unsharded one, the receiver on the FIR output.
+        tb = res["tb"]
+        layers, _ = build_multi_cell_ulsch_tx(cfg, mesh, device="cuda")(tb)
+        tx_equal = bool(torch.equal(layers, build_ulsch_tx_slot(cfg, "cuda")(tb)[0]))
+        rx = build_multi_cell_pusch_rx(cfg, mesh, device="cuda")
+        filt = res["filtered"][..., :res["samples"].shape[-2], :]
+        label = f"multi_cell rx over the FIR output (one {dist.get_backend()} rank)"
+        mc_out, mc_launches = count_launches(lambda: rx(filt), True, label)
+        bits = flatten_tb_bits(mc_out["tb_bits_cb"].cpu().numpy(), cfg.tbs)
+        mc_errors = int((bits != tb.cpu().numpy()).sum())
+        print(f"{label}: multi_cell Tx equal to the unsharded Tx {tx_equal}, tb_crc_ok "
+              f"{mc_out['tb_crc_ok'].tolist()}, TB bit errors {mc_errors}, kernel launches "
+              f"{mc_launches}")
+        if not (tx_equal and bool(mc_out["tb_crc_ok"].all()) and mc_errors == 0):
+            raise SystemExit(f"{label}: the cell-axis builders failed")
+
+        fn, (noise,) = entry.entry()
+        ecfg = entry.entry_config()
+        tb_e = random_tb(ecfg, noise.shape[0], gen)
+        _, tx_samples = build_ulsch_tx_slot(ecfg, "cuda")(tb_e)  # (B, nsamples, 2)
+        clean = tx_samples[:, None] + 1e-3 * torch.randn(tx_samples[:, None].shape,
+                                                         generator=gen, device="cuda")
+        label = "entry.entry() (24 PRB QAM16 R=0.5, 1 port, batch 2)"
+        (ok, snr), entry_launches = count_launches(lambda: fn(clean), True, label)
+        ok_noise, snr_noise = fn(noise)
+        print(f"{label}: high-SNR slot tb_crc_ok {ok.tolist()}, snr_db "
+              f"{[round(v, 2) for v in snr.tolist()]}, kernel launches {entry_launches}; its "
+              f"noise example tb_crc_ok {ok_noise.tolist()}, snr_db "
+              f"{[round(v, 2) for v in snr_noise.tolist()]}")
+        if not (bool(ok.all()) and not bool(ok_noise.any())
+                and bool(torch.isfinite(snr).all() and torch.isfinite(snr_noise).all())):
+            raise SystemExit(f"{label}: the entry step did not decode its high-SNR slot")
 
         seg = cfg.segmentation
         z, k = seg.lifting_size, 22 * seg.lifting_size
@@ -1822,7 +1878,8 @@ def phase_sharded(gen) -> dict:
                 raise SystemExit(f"{label}: differs from the unsharded kernel")
     finally:
         dist.destroy_process_group()
-    return {"sharded_rx": rx_launches, "sharded_es": launches["ldpc_decode_es"],
+    return {"dryrun_multichip": rx_launches, "multi_cell_rx": mc_launches,
+            "entry": entry_launches, "sharded_es": launches["ldpc_decode_es"],
             "sharded_fixed": launches["ldpc_decode"]}
 
 
@@ -1936,6 +1993,273 @@ def phase_multi_cell_timing(smi: str) -> None:
                 card=smi)
 
 
+# ------------------------------------------------- the app and the fronthaul --
+
+#: The app phase: slots of the north-star profile (one TDD period of 8: the
+#: SSB at slot 0, the PRACH occasion at slot 4), the slots whose host time is
+#: reported (0 and 1 build the receivers and plans), and the early-stop
+#: launches of one north-star PUSCH PDU (PERF.md section 6).
+APP_SLOTS, APP_TIMED, ES_PER_PDU = 8, range(2, 8), 2
+#: The fronthaul phase: BFP width and linear backoff of the DL loop
+#: (tests/test_ofh_loop.py), the bound on each port's EVM through it, and the
+#: U-plane frame dropped to check loss detection (port 0, symbol 5).
+OFH_WIDTH, OFH_SCALING, OFH_EVM = 9, 0.5, 0.01
+VLAN_TCI = 3
+
+
+def run_app(argv: list[str], label: str) -> tuple[int, str, dict]:
+    """apps.gnb_sim.main(argv) in this process with the launch counts set to 0
+    just before and read just after: (exit code, its standard output, the
+    launches).  The output is printed as well."""
+    import contextlib
+    import io
+
+    from srsran_projectvtlmo_tpu_torch.apps import gnb_sim
+    from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
+
+    out = io.StringIO()
+    decode_cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = gnb_sim.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(decode_cuda.LAUNCHES)
+    text = out.getvalue()
+    print(f"{label}: gnb_sim.main({argv}) -> {rc}, kernel launches {launches}")
+    print(text.strip())
+    return rc, text, launches
+
+
+def trace_spans(path: str) -> dict:
+    """{span name: (begin us, end us)} of a Chrome trace from utils/tracing."""
+    events = json.load(open(path))["traceEvents"]
+    begins = {e["name"]: e["ts"] for e in events if e.get("ph") == "B"}
+    return {e["name"]: (begins[e["name"]], e["ts"]) for e in events if e.get("ph") == "E"}
+
+
+def phase_app(smi: str) -> dict:
+    """(25) The port's app on the card: `apps.gnb_sim.main(["--northstar",
+    "--slots", "8"])` in this process, traced: every PUSCH CRC, PUCCH F1 and
+    the PRACH must pass and every DL slot drain from the pipeline, with
+    ES_PER_PDU early-stop launches per PUSCH PDU and no fixed-mode launch;
+    one JSON line with the host ms per DL+UL slot pair over slots 2-7 (the
+    trace's dl_slot_k begin to ul_slot_k end).  Then the default profile,
+    streaming, traced and recording its DL IQ: exit 0, 4 spans, and the IQ
+    file read back by `FileIqSource` equal to the samples sent."""
+    import re
+    import tempfile
+
+    from srsran_projectvtlmo_tpu_torch.apps import gnb_sim
+    from srsran_projectvtlmo_tpu_torch.radio import FileIqSink, FileIqSource
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "northstar.json")
+        label = f"app --northstar, {APP_SLOTS} slots"
+        rc, text, launches = run_app(["--northstar", "--slots", str(APP_SLOTS), "--trace", trace],
+                                     label)
+        m = re.search(r"UL CRC OK (\d+)/(\d+), PUCCH F1 (\d+)/(\d+), PRACH (\d+)/(\d+), "
+                      r"DL pipelined (\d+)/(\d+), late (\d+)", text)
+        counts = [int(g) for g in m.groups()] if m else None
+        want = [APP_SLOTS] * 4 + [1, 1] + [APP_SLOTS] * 2
+        es_want = ES_PER_PDU * APP_SLOTS
+        if not (rc == 0 and counts is not None and counts[:8] == want
+                and launches["ldpc_decode_es"] == es_want and launches["ldpc_decode"] == 0):
+            raise SystemExit(f"{label}: exit {rc}, counts {counts} (want {want} and late), "
+                             f"launches {launches} (want {es_want} early-stop, 0 fixed)")
+        spans = trace_spans(trace)
+        pair_ms = [(spans[f"ul_slot_{k}"][1] - spans[f"dl_slot_{k}"][0]) / 1e3 for k in APP_TIMED]
+        metric_line("app_northstar_host_ms_per_dl_ul_slot_pair", float(np.median(pair_ms)), "ms",
+                    min=min(pair_ms), max=max(pair_ms), per_slot=pair_ms,
+                    slots=f"{APP_TIMED.start}-{APP_TIMED.stop - 1} of {APP_SLOTS}",
+                    late=counts[8], ldpc_decode_es_launches=launches["ldpc_decode_es"],
+                    note="host clock (utils/tracing spans), DL pipelined unsynced, UL synced "
+                         "on its indications", card=smi)
+
+        trace = os.path.join(tmp, "default.json")
+        iq = os.path.join(tmp, "dl.iq")
+        sent = []
+
+        class RecordingSink(FileIqSink):
+            def transmit(self, samples_pair):
+                sent.append(np.array(samples_pair, np.float32))
+                super().transmit(samples_pair)
+
+        gnb_sim.FileIqSink = RecordingSink
+        try:
+            label = "app default profile, 2 slots, streaming"
+            rc, text, default_launches = run_app(
+                ["--slots", "2", "--streaming", "--trace", trace, "--iq-out", iq], label)
+        finally:
+            gnb_sim.FileIqSink = FileIqSink
+        names = sorted(trace_spans(trace))
+        want_iq = np.concatenate([s.reshape(-1, 2) for s in sent]) if sent else None
+        got_iq = FileIqSource(iq).receive(len(want_iq))[0] if sent else None
+        iq_ok = sent and os.path.getsize(iq) == want_iq.nbytes and np.array_equal(got_iq, want_iq)
+        print(f"{label}: trace spans {names}, DL IQ {len(sent)} slots, "
+              f"{os.path.getsize(iq)} bytes, read back equal {bool(iq_ok)}")
+        if not (rc == 0 and "UL CRC OK 2/2" in text and len(names) == 4 and iq_ok
+                and default_launches["ldpc_decode_es"] > 0
+                and default_launches["ldpc_decode"] == 0):
+            raise SystemExit(f"{label}: exit {rc}, spans {names}, IQ equal {bool(iq_ok)}, "
+                             f"launches {default_launches}")
+    return {"app_northstar": launches["ldpc_decode_es"],
+            "app_default": default_launches["ldpc_decode_es"]}
+
+
+def du_frames(wire: np.ndarray, slot_count: int) -> list[tuple[str, int, bytes]]:
+    """DU side of the split-7.2 fronthaul: one C-plane type-1 message per
+    port, then per port and symbol one U-plane message of the packed PRBs
+    (P, 14, nprb, bytes per PRB), each in eCPRI in a VLAN frame with the
+    port's eAxC as pc_id and a per-eAxC sequence id: [(kind, port, frame)]."""
+    from srsran_projectvtlmo_tpu_torch.ofh import cplane, ecpri, ethernet, uplane
+    from srsran_projectvtlmo_tpu_torch.ran.slot import SlotPoint
+
+    vlan = ethernet.VlanFrameParams(mac_dst=b"\x02\x00\x00\x00\x00\x01",
+                                    mac_src=b"\x02\x00\x00\x00\x00\x02", tci=VLAN_TCI)
+    pt = SlotPoint(numerology=1, count=slot_count)
+    nports, nsym, nprb = wire.shape[:3]
+    frames = []
+    for p in range(nports):
+        eaxc = ethernet.eaxc_pc_id(0, 0, 0, p)
+        hdr = cplane.CplaneRadioHeader(direction=1, sfn=pt.sfn, subframe=pt.subframe_index,
+                                       slot=pt.slot_in_subframe, start_symbol=0)
+        sec = cplane.CplaneCommonSection(section_id=0, prb_start=0, nof_prb=nprb, nof_symbols=nsym)
+        msg = cplane.build_type1_message(hdr, sec)
+        frames.append(("cplane", p, ethernet.build_vlan_frame(
+            vlan, ecpri.build_rt_control_packet(eaxc, 0, msg))))
+        for s in range(nsym):
+            params = uplane.UplaneMessageParams(slot=pt, symbol_id=s, start_prb=0, nof_prb=nprb,
+                                                data_width=OFH_WIDTH)
+            pkt = ecpri.build_iq_data_packet(eaxc, s & 0xFF,
+                                             uplane.build_uplane_message(params, wire[p, s]))
+            frames.append(("uplane", p, ethernet.build_vlan_frame(vlan, pkt)))
+    return frames
+
+
+def ru_receive(frames, nports: int, nprb: int) -> tuple[np.ndarray, int, int]:
+    """RU side: every frame back through VLAN, eCPRI, the per-eAxC
+    sequence-id checker, the U-plane decoder and the rx-window checker:
+    (packed PRBs (P, 14, nprb, bytes per PRB), lost frames, C-plane messages)."""
+    from srsran_projectvtlmo_tpu_torch.ofh import cplane, ecpri, ethernet, uplane
+    from srsran_projectvtlmo_tpu_torch.ofh.reception import RxWindowChecker, SequenceIdChecker
+
+    seq = SequenceIdChecker()
+    win = RxWindowChecker(numerology=1, sym_start=0, sym_end=28)
+    per_prb = 1 + (24 * OFH_WIDTH + 7) // 8
+    wire = np.zeros((nports, 14, nprb, per_prb), np.uint8)
+    lost = ncplane = 0
+    for kind, _, frame in frames:
+        pkt = ecpri.decode_packet(ethernet.decode_vlan_frame(frame).payload)
+        if kind == "cplane":
+            # numPrb 0 encodes "all PRBs" for a carrier wider than 255 PRB.
+            ncplane += cplane.decode_message(pkt.payload).section.nof_prb == \
+                (nprb if nprb <= 255 else 0)
+            continue
+        lost += abs(seq.update_and_compare(pkt.pc_id, pkt.seq_id))
+        res = uplane.decode_uplane_message(pkt.payload, static_width=OFH_WIDTH)
+        slot_index = res.slot_id + 2 * res.subframe_id
+        win.on_new_symbol(res.frame_id, slot_index, res.symbol_id)
+        if win.check(res.frame_id, slot_index, res.symbol_id) != "on_time":
+            raise SystemExit("fronthaul: a U-plane message fell outside the rx window")
+        wire[ethernet.eaxc_unpack(pkt.pc_id)[3], res.symbol_id,
+             res.start_prb:res.start_prb + res.nof_prb] = res.prb_payload
+    return wire, lost, ncplane
+
+
+def phase_fronthaul(dl_phy, dl_req, dl_data, gen, smi: str) -> dict:
+    """(26) The north-star DL slot of phase 18 (273 PRB x 4 ports, bf16 grid)
+    through the port's split-7.2 fronthaul on the card: `bfp_compress` +
+    `pack_prbs` of the whole slot at OFH_WIDTH bits with OFH_SCALING backoff,
+    U-plane / C-plane / eCPRI / VLAN framing on the host, back through the
+    sequence-id and rx-window checkers, `unpack_prbs` + `bfp_decompress` on
+    the card; each port's EVM below OFH_EVM, no frame lost, and one dropped
+    frame detected.  One JSON line: the device ms of one batched compress +
+    pack of the slot (CUDA events) and the host ms of framing and deframing.
+    Then `LowerPhy`: a north-star UL slot's samples into a `LoopbackGateway`,
+    `run_ul_slot` decoding the PUSCH (CRC and TB bits, ES_PER_PDU early-stop
+    launches), and `run_dl_slot` on the DL slot with its amplitude metrics.
+    Last, the native host library is built and in use."""
+    from srsran_projectvtlmo_tpu_torch import native
+    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
+    from srsran_projectvtlmo_tpu_torch.ops.ofdm import slot_sample_count
+    from srsran_projectvtlmo_tpu_torch.ops.ofh_compression import (
+        bfp_compress, bfp_decompress, pack_prbs, unpack_prbs)
+    from srsran_projectvtlmo_tpu_torch.phy.lower import LowerPhy
+    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import ExpertPhyConfig, UpperPhy
+    from srsran_projectvtlmo_tpu_torch.radio import LoopbackGateway
+    from srsran_projectvtlmo_tpu_torch.utils.cplx import to_cplx
+
+    grid_pair, _ = dl_phy.process_dl_slot(dl_req, dl_data, fetch=False)  # (4, 14, S, 2) bf16
+    nports, nprb = grid_pair.shape[0], grid_pair.shape[2] // 12
+    re_pair = grid_pair.float().reshape(nports, 14, nprb, 12, 2)
+
+    def compress():
+        mant, exp = bfp_compress(re_pair, OFH_WIDTH, OFH_SCALING)
+        return pack_prbs(mant, OFH_WIDTH, exp)
+
+    compress_ms = cuda_time_ms(compress, reps=20)
+    wire = compress().cpu().numpy()
+    t0 = time.perf_counter()
+    frames = du_frames(wire, DL_SLOT)
+    t1 = time.perf_counter()
+    got, lost, ncplane = ru_receive(frames, nports, nprb)
+    t2 = time.perf_counter()
+    mant, exp = unpack_prbs(torch.as_tensor(got, device="cuda"), OFH_WIDTH)
+    rebuilt = to_cplx(bfp_decompress(mant, OFH_WIDTH, OFH_SCALING, exponents=exp))
+    ref = to_cplx(re_pair)
+    evm = ((rebuilt - ref).abs().pow(2).sum((1, 2, 3)).sqrt()
+           / ref.abs().pow(2).sum((1, 2, 3)).sqrt()).tolist()
+    dropped = [f for i, f in enumerate(frames) if i != 6]  # port 0, symbol 5
+    _, lost_dropped, _ = ru_receive(dropped, nports, nprb)
+    print(f"fronthaul: north-star DL slot, {nports} ports x 14 symbols x {nprb} PRB, BFP "
+          f"{OFH_WIDTH} bit, {len(frames)} VLAN frames ({ncplane} C-plane), "
+          f"{sum(len(f) for _, _, f in frames)} bytes; EVM per port "
+          f"{[round(e, 5) for e in evm]} (bound {OFH_EVM}); lost {lost}; with one U-plane frame "
+          f"dropped: lost {lost_dropped}")
+    if not (max(evm) < OFH_EVM and lost == 0 and lost_dropped >= 1 and ncplane == nports):
+        raise SystemExit("fronthaul: the DL slot did not come back through the fronthaul")
+    metric_line("ofh_bfp_compress_pack_ms_per_slot", compress_ms, "ms",
+                prbs=nports * 14 * nprb, width=OFH_WIDTH,
+                bytes_in=re_pair.numel() * 4, bytes_out=int(wire.size),
+                host_framing_ms=(t1 - t0) * 1e3, host_deframing_ms=(t2 - t1) * 1e3,
+                frames=len(frames), note="device ms: CUDA events, mean of 20 back-to-back "
+                "bfp_compress + pack_prbs of the whole slot; framing on the host clock", card=smi)
+
+    phy = UpperPhy(fapi_cell(), ExpertPhyConfig(pusch_decoder_max_iterations=6), device="cuda")
+    gw = LoopbackGateway(nof_ports=4)
+    lower = LowerPhy(phy, gw)
+    pdu = northstar_pdu()
+    tb = random_tb(pdu_tx_cfg(pdu, FAPI_SLOT), 1, gen)
+    carrier = torch.zeros((4, 14, NS_PRB * 12), dtype=torch.complex64, device="cuda")
+    add_pusch(carrier, pdu, pusch_layers(pdu, FAPI_SLOT, tb))
+    samples = carrier_samples(carrier, 0.005, gen)
+    nsamp = slot_sample_count(NS_DFT, 1, FAPI_SLOT % 2)
+    request = UlTtiRequest(slot=FAPI_SLOT, pusch=(pdu,))
+    gw.transmit(samples)
+    lower.run_ul_slot(request, nsamp)  # builds the receiver
+    gw.transmit(samples)
+    label = "LowerPhy.run_ul_slot (LoopbackGateway, north-star PUSCH)"
+    inds, ul_launches = count_launches(lambda: lower.run_ul_slot(request, nsamp), True, label)
+    check_pusch(inds, tb, label + f", kernel launches {ul_launches}")
+    if ul_launches != ES_PER_PDU:
+        raise SystemExit(f"{label}: {ul_launches} early-stop launches, not {ES_PER_PDU}")
+    metrics = LowerPhy(dl_phy, gw).run_dl_slot(dl_req, dl_data)
+    out = gw.receive(slot_sample_count(NS_DFT, 1, DL_SLOT % 2))
+    print(f"LowerPhy.run_dl_slot (north-star DL slot): avg power {metrics.avg_power:.4g}, peak "
+          f"{metrics.peak_power:.4g}, PAPR {metrics.papr_db:.2f} dB, clipped "
+          f"{metrics.clipped_ratio:.3g}; gateway samples {out.shape}, finite "
+          f"{bool(np.isfinite(out).all())}")
+    if not (np.isfinite(out).all() and metrics.avg_power > 0):
+        raise SystemExit("LowerPhy.run_dl_slot: no samples reached the gateway")
+
+    t0 = time.perf_counter()
+    lib_ok = native.available()
+    print(f"native host library: in use {lib_ok} ({native.library_path().name}, "
+          f"{time.perf_counter() - t0:.2f} s to build and load)")
+    if not lib_ok:
+        raise SystemExit("native host library did not build: the Python fallback would run")
+    return {"lower_phy_ul": ul_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1981,9 +2305,12 @@ def main() -> int:
     scaling.update(phase_sharded(gen))
     print(json.dumps({"scaling_launches_per_call": scaling}))
     phase_multi_cell_timing(smi)
+    host_paths = {**phase_app(smi), **phase_fronthaul(dl_phy, dl_req, dl_data, gen, smi)}
+    print(json.dumps({"app_and_lower_phy_launches_per_call": host_paths}))
     # The kernels' rows count the main path's launches and those of the
-    # multi-cell and sharded calls.
+    # multi-cell, sharded, app and lower-PHY calls.
     es_launches += sum(n for k, n in scaling.items() if k != "sharded_fixed")
+    es_launches += sum(host_paths.values())
     fx_launches += scaling["sharded_fixed"]
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),

@@ -23,18 +23,28 @@ Layout (mirrors the JAX package):
   ops/polar/     polar code construction, allocation, encoder, rate matching and
                  the SSC decoder
   models/        SCH configuration, the UL-SCH transmitter, the PUSCH receive slot
-  phy/           the uplink FAPI entry point (`upper_phy.UpperPhy`), the HARQ
-                 arena, PUCCH formats 0/1/2, PRACH buffers, the two-phase
-                 (CSI part 1 -> part 2) PUSCH UCI processor, the realtime slot
-                 machinery, receiver warmup, error accounting and metrics
-  csrc/          CUDA C++ sources, built with nvcc at first use
+  phy/           the FAPI entry point (`upper_phy.UpperPhy`, UL and DL), the DL
+                 slot assembly, the HARQ arena, PUCCH formats 0/1/2, PRACH
+                 buffers, the two-phase (CSI part 1 -> part 2) PUSCH UCI
+                 processor, the realtime slot machinery, receiver warmup,
+                 error accounting and metrics, the rx-symbol handler and the
+                 lower PHY (`lower.LowerPhy`)
+  parallel/      the multi-cell upper PHY and the (cell, sp) mesh
+  ofh/, radio/   the split-7.2 fronthaul framing and the baseband gateways (host)
+  apps/          the gNB slot simulator (`python -m ...apps.gnb_sim`)
+  entry.py       the entry step and the multi-device dry run
+  native.py      the host C++ helper library, built with c++ at first use
+  csrc/          CUDA C++ sources, built with nvcc at first use, and the host
+                 C++ helpers
   data/          base graphs, polar, low-PAPR and PRACH tables and the
                  north-star test fixture
 
 This package imports torch and never jax, and nothing of the JAX package:
 it keeps its own copies of the host modules it needs (`fapi/*`, `ran/*`,
 `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`, `ops/low_papr`,
-`phy/error_handler`, `phy/metrics`) and of their data files.
+`ops/csi_rs`, `ofh/*`, `radio/*`, `phy/error_handler`, `phy/metrics`,
+`phy/rx_symbol_handler`, `utils/sanitizer`, `utils/bits`, `utils/log`,
+`utils/tracing`) and of their data files.
 """
 
 __version__ = "0.1.0"

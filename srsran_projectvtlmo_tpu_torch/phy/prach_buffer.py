@@ -11,15 +11,17 @@ lib/phy/support/prach_buffer_pool_impl.cpp).
 Storage is host numpy in the real-pair (..., 2) convention; the detector
 copies one occasion to the device.  The pool is thread-safe: the lower-PHY
 occasion collector fills buffers from symbol callbacks while the upper-PHY
-detector drains completed ones, so acquisition runs under a lock.
+detector drains completed ones, so acquisition runs under a
+sanitizer-tracked lock (utils/sanitizer.TrackedLock).
 """
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..utils.sanitizer import TrackedLock
 
 
 @dataclass(frozen=True)
@@ -102,7 +104,7 @@ class PrachBufferPool:
 
     def __init__(self, fmt: PrachBufferFormat, nof_buffers: int = 4):
         self.fmt = fmt
-        self._lock = threading.Lock()
+        self._lock = TrackedLock("prach_buffer_pool")
         self._buffers = [PrachBuffer(fmt, i) for i in range(nof_buffers)]
         self._free = list(range(nof_buffers))
 

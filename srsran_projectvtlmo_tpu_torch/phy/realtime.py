@@ -69,9 +69,11 @@ class SlotPipeline:
     @staticmethod
     def _default_sync(result) -> list[np.ndarray]:
         """Every tensor of `result` copied to the host: the copy waits for the
-        device work that produces it."""
-        return [x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-                for x in _leaves(result)]
+        device work that produces it.  numpy has no bfloat16, so a bfloat16
+        tensor (the DL slot's grid) comes back as float32, which holds its
+        values exactly."""
+        return [(x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+                if isinstance(x, torch.Tensor) else np.asarray(x) for x in _leaves(result)]
 
     def submit(self, slot: int, result, on_done: Callable | None = None) -> None:
         self._inflight.append(_InFlight(slot, time.perf_counter(), result, on_done))

@@ -54,16 +54,24 @@ _LOG = logging.getLogger("upper_phy")
 class ExpertPhyConfig:
     """Expert PHY knobs (reference: du_low_config.h:63-123).
 
-    `pusch_decoder_max_iterations` sets the receivers' LDPC iteration budget.
-    The JAX config's `use_pallas_decoder` has no counterpart: the device
-    picks the decoder (the CUDA kernel on the card, its plain version on the
-    CPU).  Its `max_proc_delay_slots` is read only by the simulator app,
-    which is not ported; `phy.realtime.SlotPipeline` takes that budget as its
-    own argument.  Its `log_level` and `rx_symbols_filename` belong to the
-    simulator app and the rx-symbol dumper, also not ported (ROADMAP).
+    Every field is consumed: `pusch_decoder_max_iterations` sets the
+    receivers' LDPC iteration budget (here and in
+    `parallel.multi_cell_phy`), `max_proc_delay_slots` the
+    `phy.realtime.SlotPipeline` deadline budget, `log_level` the app's log
+    level and `rx_symbols_filename` the rx-symbol capture file
+    (`phy.rx_symbol_handler.RxSymbolFileDumper`); the last three are read by
+    the simulator app (`apps.gnb_sim`).  The JAX config's
+    `use_pallas_decoder` has no counterpart: the device picks the decoder
+    (the CUDA kernel on the card, its plain version on the CPU).
     """
 
     pusch_decoder_max_iterations: int = 6
+    max_proc_delay_slots: int = 2
+    log_level: str = "warning"
+    #: When set, completed UL slot grids append to this binary capture file
+    #: (the reference's YAML `phy_rx_symbols_filename`,
+    #: upper_phy_rx_symbol_handler_printer_decorator.h).
+    rx_symbols_filename: str | None = None
 
 
 @dataclass(frozen=True)

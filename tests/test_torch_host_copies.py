@@ -424,3 +424,17 @@ def test_sample_shard_demod_plan_equal(args):
     got = sample_shard._demod_plan(*args)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+_APP_COPIES = ("ran/mcs.py", "ran/slot.py", "radio/__init__.py", "radio/gateway.py",
+               "ofh/__init__.py", "ofh/ecpri.py", "ofh/ethernet.py", "ofh/cplane.py",
+               "ofh/uplane.py", "ofh/reception.py", "utils/sanitizer.py", "utils/bits.py",
+               "utils/log.py", "utils/tracing.py", "phy/rx_symbol_handler.py")
+
+
+@pytest.mark.parametrize("rel", _APP_COPIES)
+def test_app_and_fronthaul_host_copy_code_equal(rel):
+    """The host modules of the app, the fronthaul and the host tooling are
+    copies, code for code."""
+    assert _code(REPO / "srsran_projectvtlmo_tpu_torch" / rel) == \
+        _code(REPO / "srsran_projectvtlmo_tpu" / rel), rel
