@@ -2030,10 +2030,14 @@ def run_app(argv: list[str], label: str) -> tuple[int, str, dict]:
 
 
 def trace_spans(path: str) -> dict:
-    """{span name: (begin us, end us)} of a Chrome trace from utils/tracing."""
+    """{span name: [(begin us, end us), ...] in order} of the app's
+    torch.profiler Chrome trace (`--trace`): its host spans."""
     events = json.load(open(path))["traceEvents"]
-    begins = {e["name"]: e["ts"] for e in events if e.get("ph") == "B"}
-    return {e["name"]: (begins[e["name"]], e["ts"]) for e in events if e.get("ph") == "E"}
+    spans: dict = {}
+    for e in sorted((e for e in events if e.get("cat") == "user_annotation"),
+                    key=lambda e: e["ts"]):
+        spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    return spans
 
 
 def phase_app(smi: str) -> dict:
@@ -2042,9 +2046,11 @@ def phase_app(smi: str) -> dict:
     the PRACH must pass and every DL slot drain from the pipeline, with
     ES_PER_PDU early-stop launches per PUSCH PDU and no fixed-mode launch;
     one JSON line with the host ms per DL+UL slot pair over slots 2-7 (the
-    trace's dl_slot_k begin to ul_slot_k end).  Then the default profile,
-    streaming, traced and recording its DL IQ: exit 0, 4 spans, and the IQ
-    file read back by `FileIqSource` equal to the samples sent."""
+    trace's k-th app.dl_slot begin to k-th app.ul_slot end, under the
+    profiler).  Then the default profile, streaming, traced and recording
+    its DL IQ: exit 0, two app.dl_slot and two app.ul_slot spans with the
+    port's entry spans inside, and the IQ file read back by `FileIqSource`
+    equal to the samples sent."""
     import re
     import tempfile
 
@@ -2066,12 +2072,13 @@ def phase_app(smi: str) -> dict:
             raise SystemExit(f"{label}: exit {rc}, counts {counts} (want {want} and late), "
                              f"launches {launches} (want {es_want} early-stop, 0 fixed)")
         spans = trace_spans(trace)
-        pair_ms = [(spans[f"ul_slot_{k}"][1] - spans[f"dl_slot_{k}"][0]) / 1e3 for k in APP_TIMED]
+        pair_ms = [(spans["app.ul_slot"][k][1] - spans["app.dl_slot"][k][0]) / 1e3
+                   for k in APP_TIMED]
         metric_line("app_northstar_host_ms_per_dl_ul_slot_pair", float(np.median(pair_ms)), "ms",
                     min=min(pair_ms), max=max(pair_ms), per_slot=pair_ms,
                     slots=f"{APP_TIMED.start}-{APP_TIMED.stop - 1} of {APP_SLOTS}",
                     late=counts[8], ldpc_decode_es_launches=launches["ldpc_decode_es"],
-                    note="host clock (utils/tracing spans), DL pipelined unsynced, UL synced "
+                    note="profiler clock (app spans, traced), DL pipelined unsynced, UL synced "
                          "on its indications", card=smi)
 
         trace = os.path.join(tmp, "default.json")
@@ -2090,13 +2097,18 @@ def phase_app(smi: str) -> dict:
                 ["--slots", "2", "--streaming", "--trace", trace, "--iq-out", iq], label)
         finally:
             gnb_sim.FileIqSink = FileIqSink
-        names = sorted(trace_spans(trace))
+        spans = trace_spans(trace)
+        names = {k: len(v) for k, v in spans.items()
+                 if k.startswith("app.") or k.endswith("process_dl_slot")
+                 or k.endswith("process_ul_slot")}
         want_iq = np.concatenate([s.reshape(-1, 2) for s in sent]) if sent else None
         got_iq = FileIqSource(iq).receive(len(want_iq))[0] if sent else None
         iq_ok = sent and os.path.getsize(iq) == want_iq.nbytes and np.array_equal(got_iq, want_iq)
         print(f"{label}: trace spans {names}, DL IQ {len(sent)} slots, "
               f"{os.path.getsize(iq)} bytes, read back equal {bool(iq_ok)}")
-        if not (rc == 0 and "UL CRC OK 2/2" in text and len(names) == 4 and iq_ok
+        want_names = {"app.dl_slot": 2, "app.ul_slot": 2, "upper_phy.process_dl_slot": 2}
+        if not (rc == 0 and "UL CRC OK 2/2" in text
+                and all(names.get(k) == n for k, n in want_names.items()) and iq_ok
                 and default_launches["ldpc_decode_es"] > 0
                 and default_launches["ldpc_decode"] == 0):
             raise SystemExit(f"{label}: exit {rc}, spans {names}, IQ equal {bool(iq_ok)}, "

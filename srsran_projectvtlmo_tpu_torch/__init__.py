@@ -27,8 +27,8 @@ Layout (mirrors the JAX package):
                  slot assembly, the HARQ arena, PUCCH formats 0/1/2, PRACH
                  buffers, the two-phase (CSI part 1 -> part 2) PUSCH UCI
                  processor, the realtime slot machinery, receiver warmup,
-                 error accounting and metrics, the rx-symbol handler and the
-                 lower PHY (`lower.LowerPhy`)
+                 error accounting, the rx-symbol handler and the lower PHY
+                 (`lower.LowerPhy`)
   parallel/      the multi-cell upper PHY and the (cell, sp) mesh
   ofh/, radio/   the split-7.2 fronthaul framing and the baseband gateways (host)
   apps/          the gNB slot simulator (`python -m ...apps.gnb_sim`)
@@ -42,9 +42,10 @@ Layout (mirrors the JAX package):
 This package imports torch and never jax, and nothing of the JAX package:
 it keeps its own copies of the host modules it needs (`fapi/*`, `ran/*`,
 `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`, `ops/low_papr`,
-`ops/csi_rs`, `ofh/*`, `radio/*`, `phy/error_handler`, `phy/metrics`,
-`phy/rx_symbol_handler`, `utils/sanitizer`, `utils/bits`, `utils/log`,
-`utils/tracing`) and of their data files.
+`ops/csi_rs`, `ofh/*`, `radio/*`, `phy/error_handler`,
+`phy/rx_symbol_handler`, `utils/sanitizer`, `utils/bits`, `utils/log`) and
+of their data files.  Its tracing (`utils/tracing`) is its own: spans on
+torch.profiler's clock and per-call byte counters of the FAPI entries.
 """
 
 __version__ = "0.1.0"

@@ -17,6 +17,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import sys
@@ -69,8 +70,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--channel", default="AWGN", choices=["AWGN", "TDLA", "TDLB", "TDLC"])
     ap.add_argument("--config", default=None, help="YAML cell config (needs PyYAML)")
     ap.add_argument("--trace", default=None,
-                    help="write a Chrome trace JSON of the slot loop here (spans "
-                         "dl_slot_<k> and ul_slot_<k>)")
+                    help="profile the slot loop with torch.profiler (the card's "
+                         "activity too on --device cuda) and write its Chrome trace "
+                         "here: spans app.dl_slot and app.ul_slot around the port's")
     ap.add_argument("--iq-out", default=None, help="record DL IQ to this file")
     ap.add_argument("--streaming", action="store_true",
                     help="feed UL symbol-by-symbol through the rx-symbol "
@@ -106,13 +108,21 @@ def _host_grid(grid_pair: torch.Tensor) -> np.ndarray:
     return to_cplx(grid_pair.float()).cpu().numpy()
 
 
+def _profiler(path, device) -> contextlib.ExitStack:
+    """An ExitStack holding `utils.tracing.profile` when `path` is set;
+    closing it writes the trace."""
+    stack = contextlib.ExitStack()
+    if path:
+        stack.enter_context(tracing.profile(path, device))
+    return stack
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.northstar:
         return run_northstar(args)
 
     dev = resolve_device(args.device)
-    tracer = tracing.enable_tracing(args.trace) if args.trace else tracing.NullTracer()
     if args.config:
         from ..utils.config import load_config
 
@@ -148,9 +158,10 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(0)
     crc_ok = 0
+    tracer = _profiler(args.trace, dev)
     t_start = time.perf_counter()
     for slot in range(args.slots):
-        with tracer.span(f"dl_slot_{slot}"):
+        with tracing.span("app.dl_slot"):
             tb = rng.integers(0, 2, dl_sch.tbs).astype(np.uint8)
             dl_req = DlTtiRequest(
                 slot=slot,
@@ -162,7 +173,7 @@ def main(argv=None) -> int:
             if sink:
                 sink.transmit(samples)
 
-        with tracer.span(f"ul_slot_{slot}"):
+        with tracing.span("app.ul_slot"):
             ue_cfg_slot = dataclasses.replace(ue_cfg, slot=slot)
             ul_tb = rng.integers(0, 2, ue_cfg_slot.tbs).astype(np.uint8)
             alloc_grid_pair, _ = cached_ulsch_tx(ue_cfg_slot, dev)(
@@ -221,10 +232,9 @@ def run_northstar(args) -> int:
     SlotPipeline), UL = 2-layer 272-PRB QAM256 PUSCH (streaming rx-symbol
     dispatch) + PUCCH format 1 on the edge PRB + a PRACH occasion every 8
     slots (reference: apps/gnb/gnb.cpp +
-    configs/gnb_ru_ran550_tdd_n78_100mhz_4x2.yml).  With --trace each slot
-    count k writes the spans dl_slot_<k> and ul_slot_<k>."""
+    configs/gnb_ru_ran550_tdd_n78_100mhz_4x2.yml).  With --trace every slot
+    count opens the spans app.dl_slot and app.ul_slot."""
     dev = resolve_device(args.device)
-    tracer = tracing.enable_tracing(args.trace) if args.trace else tracing.NullTracer()
     cell = CellConfig(nof_rb=NS_PRB, dft_size=NS_DFT, numerology=1,
                       nof_tx_ports=4, nof_rx_ports=4, phys_cell_id=1)
     expert = _expert(args)
@@ -287,13 +297,14 @@ def run_northstar(args) -> int:
     pucch_ok = 0
     prach_expected = 0
     prach_found = 0
+    tracer = _profiler(args.trace, dev)
     t_start = time.perf_counter()
     for count in range(args.slots):
         # The emulated radio repeats with period 8 (the TDD pattern length):
         # slot 0 carries the SSB and slot 4 the PRACH occasion.
         slot = count % 8
         # ---- DL slot, pipelined (unsynced device results in flight) -------
-        with tracer.span(f"dl_slot_{count}"):
+        with tracing.span("app.dl_slot"):
             dl_req = DlTtiRequest(
                 slot=slot,
                 ssb=(SsbPdu(phys_cell_id=cell.phys_cell_id, ssb_block_index=0,
@@ -305,7 +316,7 @@ def run_northstar(args) -> int:
             pipeline.submit(slot, result, on_done=lambda s, leaves: sent_dl.append(s))
 
         # ---- UL slot ------------------------------------------------------
-        with tracer.span(f"ul_slot_{count}"):
+        with tracing.span("app.ul_slot"):
             ue_slot = dataclasses.replace(ue_cfg, slot=slot)
             ul_tb = rng.integers(0, 2, ue_slot.tbs).astype(np.uint8)
             layer_grids, _ = cached_ulsch_tx(ue_slot, dev)(torch.as_tensor(ul_tb[None],

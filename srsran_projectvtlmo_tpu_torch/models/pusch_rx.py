@@ -28,7 +28,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import ofdm as ofdm_mod
 from ..ops import prg as prg_mod
@@ -47,6 +46,7 @@ from ..ops.ldpc.segment import tb_crc_name
 from ..ops.ulsch_demux import build_ulsch_demux_plan, placeholder_fix_signs
 from ..ran.modulation import bits_per_symbol
 from ..ran.ulsch_info import get_ulsch_information
+from ..utils import tracing
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
 from ..utils.tables import resolve_device
 from .sch_config import SchChainConfig
@@ -314,12 +314,12 @@ def build_pusch_phase_b(cfg: PuschRxConfig, nof_csi_part2_bits: int, device="cud
             if cfg.dynamic_params and csi2_fix is None:
                 raise ValueError("dynamic_params phase B takes csi2_fix")
             fix = csi2_fix.to(torch.int32) if cfg.dynamic_params else csi2_fix_static
-            with record_function("pusch_rx.uci"):
+            with tracing.span("pusch_rx.uci"):
                 out["csi2_bits"], out["csi2_metric"] = decode_uci_field(
                     llr[:, csi2_idx].to(torch.int32) * fix, nof_csi_part2_bits, qm)
-        with record_function("pusch_rx.dematch"):
+        with tracing.span("pusch_rx.dematch"):
             parts = _dematch_rows(cfg, llr[:, sch_idx], groups)
-        with record_function("pusch_rx.decode"):
+        with tracing.span("pusch_rx.decode"):
             out.update(_decode_sch_groups(cfg, parts, [(a, bnd) for _, a, bnd, _, _ in groups],
                                           harq_buffer))
         return out
@@ -519,24 +519,24 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
         else:
             ref_dmrs = dyn_signs = dyn_uci_fix = None
         b = grid.shape[0]
-        with record_function("pusch_rx.estimate"):
+        with tracing.span("pusch_rx.estimate"):
             ws, nvs, ta, cfo_b = estimate(grid, ref_dmrs)
-        with record_function("pusch_rx.equalize"):
+        with tracing.span("pusch_rx.equalize"):
             eq, nv_flat = equalize(grid, ws, nvs, cfo_b)
         no_ack = {"harq_ack_bits": torch.zeros((b, 0), dtype=torch.uint8, device=dev),
                   "harq_ack_metric": torch.zeros((b,), dtype=torch.float32, device=dev)}
         if not has_uci:
-            with record_function("pusch_rx.demap"):
+            with tracing.span("pusch_rx.demap"):
                 llr_bm = demap_bit_major(eq, nv_flat, dyn_signs)
-            with record_function("pusch_rx.dematch"):
+            with tracing.span("pusch_rx.dematch"):
                 parts = dematch_bit_major(llr_bm)
-            with record_function("pusch_rx.decode"):
+            with tracing.span("pusch_rx.decode"):
                 out = _decode_sch_groups(cfg, parts, cb_ranges, harq_buffer)
-            with record_function("pusch_rx.metrics"):
+            with tracing.span("pusch_rx.metrics"):
                 out.update(metrics(eq, nvs, nv_flat, ta), **no_ack)
             return out
 
-        with record_function("pusch_rx.demap"):
+        with tracing.span("pusch_rx.demap"):
             llr = soft_demap(eq, nv_flat, cfg.modulation)  # (B, G) int8
             sg = signs if dyn_signs is None else dyn_signs.to(torch.int32)
             llr = torch.clamp(llr.to(torch.int32) * sg, -127, 127).to(torch.int8)
@@ -545,7 +545,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
             fix = {name: (f.to(torch.int32) if f is not None else None)
                    for name, f in zip(("ack", "csi1", "csi2"), dyn_uci_fix)}
         out = dict(no_ack)
-        with record_function("pusch_rx.uci"):
+        with tracing.span("pusch_rx.uci"):
             if cfg.nof_harq_ack_bits:
                 out["harq_ack_bits"], out["harq_ack_metric"] = decode_uci_field(
                     field(llr, "ack", fix["ack"]), cfg.nof_harq_ack_bits, qm)
@@ -565,11 +565,11 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
                 out["csi2_bits"], out["csi2_metric"] = decode_uci_field(
                     field(llr, "csi2", fix["csi2"]), cfg.nof_csi_part2_bits, qm)
         if cfg.decode_sch:
-            with record_function("pusch_rx.dematch"):
+            with tracing.span("pusch_rx.dematch"):
                 parts = _dematch_rows(cfg, llr[:, sch_idx], groups)
-            with record_function("pusch_rx.decode"):
+            with tracing.span("pusch_rx.decode"):
                 out.update(_decode_sch_groups(cfg, parts, cb_ranges, harq_buffer))
-        with record_function("pusch_rx.metrics"):
+        with tracing.span("pusch_rx.metrics"):
             out.update(metrics(eq, nvs, nv_flat, ta))
         return out
 
@@ -595,7 +595,7 @@ def build_pusch_rx_slot(cfg: PuschRxConfig, device="cuda"):
 
     @torch.no_grad()
     def rx(samples: torch.Tensor, harq_buffer: torch.Tensor | None = None) -> dict:
-        with record_function("pusch_rx.ofdm_demodulate"):
+        with tracing.span("pusch_rx.ofdm_demodulate"):
             grid = ofdm_mod.ofdm_demodulate(
                 samples, cfg.nof_subc, cfg.dft_size, cfg.numerology,
                 cfg.slot % (1 << cfg.numerology), out_dtype="bf16" if cfg.grid_bf16 else "f32")

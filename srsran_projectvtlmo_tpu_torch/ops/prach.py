@@ -26,7 +26,7 @@ import torch
 
 from ..ran.prach_preamble import preamble_info
 from ..utils.cplx import to_cplx
-from ..utils.tables import on_device
+from ..utils.tables import fetch, on_device
 
 LONG = 839
 SHORT = 139
@@ -279,7 +279,7 @@ def prach_detect(rx_freq_pair: torch.Tensor, cfg: PrachDetectorConfig, oversampl
     metric, ta = _detect(rx_freq_pair, cfg, nfft, margin)
     # One compact (B, nof_preambles) fetch; the threshold scan is a numpy
     # vector compare.
-    both = torch.stack([metric, ta]).cpu().numpy()
+    both = fetch(torch.stack([metric, ta]))
     metric, ta = both[0], both[1]
     return [[(int(i), float(ta[b, i]), float(metric[b, i] / thr))
              for i in np.flatnonzero(metric[b] > thr)] for b in range(metric.shape[0])]

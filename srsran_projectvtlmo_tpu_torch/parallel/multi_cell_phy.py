@@ -44,6 +44,7 @@ from ..phy.pusch_uci import PuschUciConfig, PuschUciProcessor, _phase_b_cfg
 from ..phy.upper_phy import (
     CellConfig, ExpertPhyConfig, UpperPhy, _host, extract_pusch_allocation, pusch_rx_key,
     pusch_sequences)
+from ..utils import tables, tracing
 from ..utils.tables import resolve_device, upload
 from .distributed import RanMesh, make_ran_mesh
 from .mesh import block, gather, gather_objects
@@ -102,28 +103,37 @@ class MultiCellUpperPhy:
 
         Returns (grids (ncell, P, 14, nsubc, 2), samples (ncell, P,
         nsamples, 2)): device tensors (the grid bf16 with `grid_bf16`), or
-        float32 numpy with fetch=True.
+        float32 numpy with fetch=True.  The spans are `UpperPhy`'s.
         """
-        assert len(requests) == self.nof_cells
-        tx_datas = tx_datas or [None] * self.nof_cells
-        slot = requests[0].slot
-        if len({dl_mod.plan_key_for(r, self.cfg) for r in requests}) != 1:
-            outs = [self.cell_phys[c].process_dl_slot(requests[c], tx_datas[c], fetch=False)
-                    for c in self.cells]
-            grid = torch.stack([g for g, _ in outs])
-            samples = torch.stack([s for _, s in outs])
-        else:
-            program = dl_mod.get_dl_slot_program(requests[0], self.cfg, self.device)
-            batch = []
-            for c in self.cells:
-                values = dl_mod.build_dl_slot_inputs(program, requests[c], tx_datas[c], slot)
-                batch.append(program.value_args(requests[c], values))
-            grid, samples = program.run_batched(slot, batch)
-        mesh = self.rmesh.mesh
-        grid, samples = gather(grid, mesh, "cell"), gather(samples, mesh, "cell")
-        if fetch:
-            return grid.float().cpu().numpy(), samples.cpu().numpy()
-        return grid, samples
+        with tracing.entry("multi_cell_phy.process_dl_slot"):
+            assert len(requests) == self.nof_cells
+            tx_datas = tx_datas or [None] * self.nof_cells
+            slot = requests[0].slot
+            with tracing.span("upper_phy.dl_plan"):
+                batched = len({dl_mod.plan_key_for(r, self.cfg) for r in requests}) == 1
+                if batched:
+                    program = dl_mod.get_dl_slot_program(requests[0], self.cfg, self.device)
+            if not batched:
+                outs = [self.cell_phys[c].process_dl_slot(requests[c], tx_datas[c], fetch=False)
+                        for c in self.cells]
+                grid = torch.stack([g for g, _ in outs])
+                samples = torch.stack([s for _, s in outs])
+            else:
+                with tracing.span("upper_phy.dl_values"):
+                    with tracing.span("dl_slot.host_values"):
+                        batch = []
+                        for c in self.cells:
+                            values = dl_mod.build_dl_slot_inputs(program, requests[c],
+                                                                 tx_datas[c], slot)
+                            batch.append(program.value_args(requests[c], values))
+                    stacked = program.stack_values(batch)
+                grid, samples = program.run_stacked(slot, stacked)
+            mesh = self.rmesh.mesh
+            grid, samples = gather(grid, mesh, "cell"), gather(samples, mesh, "cell")
+            if not fetch:
+                return grid, samples
+            with tracing.span("upper_phy.dl_fetch"):
+                return tables.fetch(grid), tables.fetch(samples)
 
     # ------------------------------------------------------------------ UL --
 
@@ -142,6 +152,10 @@ class MultiCellUpperPhy:
         odd-shaped PUSCH) goes through the per-cell `UpperPhy`, as in JAX
         without PRACH samples.
         """
+        with tracing.entry("multi_cell_phy.process_ul_slot"):
+            return self._process_ul_slot(requests, samples)
+
+    def _process_ul_slot(self, requests, samples) -> list[list]:
         assert len(requests) == self.nof_cells
         cfg = self.cfg
         slot = requests[0].slot
@@ -155,9 +169,11 @@ class MultiCellUpperPhy:
                     batchable.append(i)
 
         if batchable:
-            x = upload(samples[self.cells.start:self.cells.stop], self.device, torch.float32)
-            grid = ofdm_mod.ofdm_demodulate(x, cfg.nof_subc, cfg.dft_size, cfg.numerology,
-                                            slot % (1 << cfg.numerology))  # (B, P, 14, nsubc, 2)
+            with tracing.span("upper_phy.ul_ofdm"):
+                x = upload(samples[self.cells.start:self.cells.stop], self.device, torch.float32)
+                # (B, P, 14, nsubc, 2)
+                grid = ofdm_mod.ofdm_demodulate(x, cfg.nof_subc, cfg.dft_size, cfg.numerology,
+                                                slot % (1 << cfg.numerology))
             for i in batchable:
                 self._process_pusch_batched(slot, [requests[c].pusch[i] for c in self.cells],
                                             grid, out)
@@ -196,7 +212,8 @@ class MultiCellUpperPhy:
         plan = None
         if nof_ack or nof_csi1:
             plan, _ = cached_demux_plan(rx_cfg, 0 if two_phase else const_csi2)
-        seqs = [pusch_sequences(v, plan) for v in valued]  # (ref, scr, signs, fixes)
+        with tracing.span("upper_phy.pusch_sequences"):
+            seqs = [pusch_sequences(v, plan) for v in valued]  # (ref, scr, signs, fixes)
         ref_in = upload(np.stack([s[0] for s in seqs]), dev)
         signs_in = upload(np.stack([s[2] for s in seqs]), dev)
         uci_fix = None

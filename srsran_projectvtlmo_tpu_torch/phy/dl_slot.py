@@ -45,6 +45,7 @@ from ..ops.precoding import identity_precoder, layer_map
 from ..ran.pdcch_mapping import (
     cce_to_reg_interleaved, cce_to_reg_non_interleaved, pdcch_coreset_prbs, pdcch_re_indices)
 from ..ran.re_pattern import reserved_mask_window
+from ..utils import tracing
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
 from ..utils.tables import resolve_device, upload_many
 from . import pbch as pbch_mod
@@ -320,16 +321,20 @@ class DlSlotProgram:
         """Stack per-entry `value_args` tuples on a leading batch axis (slots of
         one cell, or one slot of many same-structure cells) and move the
         arrays to the device, one pinned upload per dtype; the buffer starts
-        stay host ints, one per entry.  The batch size leads the result."""
-        stacked = _stack(*value_args_batch)
-        on_dev = upload_many(_arrays(stacked), self.device)
-        return (len(value_args_batch),) + _replace_arrays(stacked, iter(on_dev))
+        stay host ints, one per entry.  The batch size leads the result
+        (span `dl_slot.upload`)."""
+        with tracing.span("dl_slot.upload"):
+            stacked = _stack(*value_args_batch)
+            on_dev = upload_many(_arrays(stacked), self.device)
+            return (len(value_args_batch),) + _replace_arrays(stacked, iter(on_dev))
 
     @torch.no_grad()
     def run_stacked(self, slot: int, stacked):
-        """The batched slot assembly on `stack_values` output.
+        """The batched slot assembly on `stack_values` output (span
+        `dl_slot.run`: the host issuing the slot's device work).
         Returns (grid (B, P, 14, nsubc, 2), samples (B, P, nsamples, 2))."""
-        return self._assemble(slot % (1 << self.cell.numerology), *stacked)
+        with tracing.span("dl_slot.run"):
+            return self._assemble(slot % (1 << self.cell.numerology), *stacked)
 
     def run_batched(self, slot: int, value_args_batch):
         """`stack_values` + `run_stacked` in one call."""
@@ -338,12 +343,14 @@ class DlSlotProgram:
 
 @functools.lru_cache(maxsize=512)
 def _scramble_planes(cfg, rnti: int, n_id: int):
-    return sch_scramble_planes(cfg, rnti, n_id)
+    with tracing.span("dl_slot.scramble_planes"):  # on a cache miss only
+        return sch_scramble_planes(cfg, rnti, n_id)
 
 
 @functools.lru_cache(maxsize=64)
 def _cached_program(key: DlSlotPlanKey, cell, device: torch.device) -> DlSlotProgram:
-    return DlSlotProgram(key, cell, device)
+    with tracing.span("dl_slot.build_plan"):  # on a cache miss only
+        return DlSlotProgram(key, cell, device)
 
 
 def plan_key_for(request: DlTtiRequest, cell) -> DlSlotPlanKey:

@@ -33,7 +33,7 @@ from ..models.pusch_rx import (
     PuschRxConfig, cached_pusch_phase_b, cached_pusch_rx_from_grid, flatten_tb_bits)
 from ..ops.ulsch_demux import placeholder_fix_signs
 from ..ran.modulation import bits_per_symbol
-from ..utils.tables import resolve_device
+from ..utils.tables import fetch, resolve_device
 
 
 @dataclass(frozen=True)
@@ -52,10 +52,6 @@ def _phase_a_cfg(rx: PuschRxConfig) -> PuschRxConfig:
 @functools.lru_cache(maxsize=None)
 def _phase_b_cfg(rx: PuschRxConfig) -> PuschRxConfig:
     return dataclasses.replace(rx, decode_sch=True, nof_csi_part2_bits=0)
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
 
 
 class PuschUciProcessor:
@@ -107,7 +103,7 @@ class PuschUciProcessor:
             a = self._phase_a(grid_pair, None, ref_dmrs, dyn_signs, dyn_uci_fix)
         else:
             a = self._phase_a(grid_pair)
-        csi1_np = _host(a["csi1_bits"])
+        csi1_np = fetch(a["csi1_bits"])
         sizes = self.csi2_sizes(csi1_np)
         if len(set(sizes)) != 1:
             raise ValueError("mixed csi2 sizes in one batch not supported yet")
@@ -119,14 +115,14 @@ class PuschUciProcessor:
             csi2_fix = self.csi2_fix_signs(csi2_size, scr_bits)
         out = dict(phase_b(a["codeword_llr"], harq_buffer, csi2_fix))
         out["csi1_bits"] = csi1_np
-        out["csi1_metric"] = _host(a["csi1_metric"])
+        out["csi1_metric"] = fetch(a["csi1_metric"])
         out["csi1_valid"] = out["csi1_metric"] > 0.0
         out["csi2_size"] = csi2_size
         if csi2_size:
-            out["csi2_valid"] = _host(out["csi2_metric"]) > 0.0
-        out["tb_bits"] = flatten_tb_bits(_host(out["tb_bits_cb"]), rx.tbs)
+            out["csi2_valid"] = fetch(out["csi2_metric"]) > 0.0
+        out["tb_bits"] = flatten_tb_bits(fetch(out["tb_bits_cb"]), rx.tbs)
         out["snr_db"], out["evm"], out["ta_s"] = a["snr_db"], a["evm"], a["ta_s"]
         if rx.nof_harq_ack_bits:
-            out["harq_ack_bits"] = _host(a["harq_ack_bits"])
-            out["harq_ack_metric"] = _host(a["harq_ack_metric"])
+            out["harq_ack_bits"] = fetch(a["harq_ack_bits"])
+            out["harq_ack_metric"] = fetch(a["harq_ack_metric"])
         return out

@@ -25,7 +25,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..fapi import validators as fapi_validators
 from ..fapi.pdus import (
@@ -40,6 +39,7 @@ from ..ops import srs as srs_mod
 from ..ops.ulsch_demux import placeholder_fix_signs
 from ..ran.modulation import bits_per_symbol
 from ..utils.cplx import np_to_pair, to_cplx
+from ..utils import tables, tracing
 from ..utils.tables import resolve_device, upload
 from . import dl_slot
 from . import pucch as pucch_mod
@@ -148,7 +148,7 @@ def pusch_sequences(cfg: PuschRxConfig, plan=None):
 def _host(x) -> np.ndarray:
     """A device tensor (or a host array the two-phase processor already
     fetched) as numpy; copying a tensor to the host waits for the device."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return tables.fetch(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class FapiValidationError(ValueError):
@@ -193,31 +193,40 @@ class UpperPhy:
         pipeline slots (`phy.realtime.SlotPipeline`).
 
         The slot structure selects a cached `phy.dl_slot.DlSlotProgram`; the
-        host computes the slot's values (span `upper_phy.dl_values`: TB bits,
-        scrambling planes, DM-RS, PDCCH symbols, the SSB block, CSI-RS
-        pilots, and their upload, one pinned copy per dtype).
+        host computes the slot's values (TB bits, scrambling planes, DM-RS,
+        PDCCH symbols, the SSB block, CSI-RS pilots) and uploads them, one
+        pinned copy per dtype.  Spans (`utils.tracing`), in order:
+        `upper_phy.dl_validate`, `upper_phy.dl_plan`, `upper_phy.dl_values`
+        (`dl_slot.host_values`, `dl_slot.upload`), `dl_slot.run` and, with
+        fetch=True, `upper_phy.dl_fetch`.
         """
-        if validate:
-            rep = fapi_validators.validate_dl_tti_request(request)
-            if tx_data is not None:
-                rep.errors.extend(fapi_validators.validate_tx_data_request(tx_data, request).errors)
-            if not rep.ok:
-                raise FapiValidationError(rep)
-        slot = request.slot
-        program = dl_slot.get_dl_slot_program(request, self.cfg, self.device)
-        with record_function("upper_phy.dl_values"):
-            values = dl_slot.build_dl_slot_inputs(program, request, tx_data, slot)
-            stacked = program.stack_values([program.value_args(request, values)])
-        grid_pair, samples = program.run_stacked(slot, stacked)
-        grid_pair, samples = grid_pair[0], samples[0]
-        if not fetch:
-            return grid_pair, samples
-        g = grid_pair.cpu().float().numpy()
-        grid = g[..., 0].astype(np.complex64) + 1j * g[..., 1].astype(np.complex64)
-        samples = samples.cpu().numpy()
-        if self.cfg.nof_tx_ports == 1:
-            return grid[0], samples[0]
-        return grid, samples
+        with tracing.entry("upper_phy.process_dl_slot"):
+            if validate:
+                with tracing.span("upper_phy.dl_validate"):
+                    rep = fapi_validators.validate_dl_tti_request(request)
+                    if tx_data is not None:
+                        rep.errors.extend(
+                            fapi_validators.validate_tx_data_request(tx_data, request).errors)
+                if not rep.ok:
+                    raise FapiValidationError(rep)
+            slot = request.slot
+            with tracing.span("upper_phy.dl_plan"):
+                program = dl_slot.get_dl_slot_program(request, self.cfg, self.device)
+            with tracing.span("upper_phy.dl_values"):
+                with tracing.span("dl_slot.host_values"):
+                    values = dl_slot.build_dl_slot_inputs(program, request, tx_data, slot)
+                    args = program.value_args(request, values)
+                stacked = program.stack_values([args])
+            grid_pair, samples = program.run_stacked(slot, stacked)
+            if not fetch:
+                return grid_pair[0], samples[0]
+            with tracing.span("upper_phy.dl_fetch"):
+                g = tables.fetch(grid_pair[0])
+                grid = g[..., 0].astype(np.complex64) + 1j * g[..., 1].astype(np.complex64)
+                samples = tables.fetch(samples[0])
+                if self.cfg.nof_tx_ports == 1:
+                    return grid[0], samples[0]
+                return grid, samples
 
     # ------------------------------------------------------------------ UL --
 
@@ -236,10 +245,18 @@ class UpperPhy:
             PRACH PDU selects its occasion via its `fd_occasion` attribute
             (default 0) and all ports are combined non-coherently.
 
-        Returns a list of indication objects.
+        Returns a list of indication objects.  Spans (`utils.tracing`):
+        `upper_phy.ul_validate`, `upper_phy.ul_ofdm` (the samples' upload
+        and the carrier OFDM demodulation), the PUSCH receiver's, and
+        `upper_phy.pucch`, `upper_phy.srs`, `upper_phy.prach` per PDU.
         """
+        with tracing.entry("upper_phy.process_ul_slot"):
+            return self._process_ul_slot(request, samples, prach_samples, validate)
+
+    def _process_ul_slot(self, request, samples, prach_samples, validate) -> list:
         if validate:
-            rep = fapi_validators.validate_ul_tti_request(request)
+            with tracing.span("upper_phy.ul_validate"):
+                rep = fapi_validators.validate_ul_tti_request(request)
             if not rep.ok:
                 raise FapiValidationError(rep)
         cfg = self.cfg
@@ -248,46 +265,55 @@ class UpperPhy:
 
         grid = None
         if request.pusch or request.pucch or request.srs:
-            x = upload(samples, self.device, torch.float32)
-            grid = ofdm_mod.ofdm_demodulate(x, cfg.nof_subc, cfg.dft_size, cfg.numerology,
-                                            slot % (1 << cfg.numerology))  # (P, 14, nsubc, 2)
+            with tracing.span("upper_phy.ul_ofdm"):
+                x = upload(samples, self.device, torch.float32)
+                grid = ofdm_mod.ofdm_demodulate(x, cfg.nof_subc, cfg.dft_size, cfg.numerology,
+                                                slot % (1 << cfg.numerology))  # (P, 14, nsubc, 2)
 
         for pdu in request.pusch:
             indications.extend(self._process_pusch(slot, pdu, grid))
 
         for pdu in request.pucch:
-            indications.append(self._process_pucch(slot, pdu, grid))
+            with tracing.span("upper_phy.pucch"):
+                indications.append(self._process_pucch(slot, pdu, grid))
 
         for pdu in request.srs:
-            indications.append(self._process_srs(slot, pdu, grid, samples))
+            with tracing.span("upper_phy.srs"):
+                indications.append(self._process_srs(slot, pdu, grid, samples))
 
         if prach_samples is not None:
             for pdu in request.prach:
-                det_cfg = prach_mod.PrachDetectorConfig(
-                    sequence_length=prach_mod.LONG if pdu.format_is_long else prach_mod.SHORT,
-                    root_sequence_index=pdu.root_sequence_index,
-                    zero_correlation_zone=pdu.zero_correlation_zone,
-                    ncs_table="1.25kHz" if pdu.format_is_long else "short",
-                )
-                if isinstance(prach_samples, PrachBuffer):
-                    if not prach_samples.full:
-                        # Partially-captured occasion: skip detection rather
-                        # than combine all-zero symbols (see
-                        # nof_dropped_prach_occasions).
-                        self.nof_dropped_prach_occasions += 1
-                        _LOG.warning("PRACH occasion at slot %d dropped: capture "
-                                     "buffer not fully filled", slot)
-                        continue
-                    # (S, P, L, 2) occasion -> (1, P, S, L, 2) detector input
-                    # with multi-port non-coherent combining.
-                    occ = np.transpose(prach_samples.occasion(getattr(pdu, "fd_occasion", 0)),
-                                       (1, 0, 2, 3))[None]
-                else:
-                    occ = np.asarray(prach_samples)[None]
-                dets = prach_mod.prach_detect(upload(occ, self.device, torch.float32), det_cfg)[0]
-                indications.append(RachIndication(slot=slot, preambles=dets))
+                with tracing.span("upper_phy.prach"):
+                    ind = self._process_prach(slot, pdu, prach_samples)
+                if ind is not None:
+                    indications.append(ind)
 
         return indications
+
+    def _process_prach(self, slot, pdu, prach_samples) -> RachIndication | None:
+        """One PRACH PDU's detection; None where its occasion was dropped."""
+        det_cfg = prach_mod.PrachDetectorConfig(
+            sequence_length=prach_mod.LONG if pdu.format_is_long else prach_mod.SHORT,
+            root_sequence_index=pdu.root_sequence_index,
+            zero_correlation_zone=pdu.zero_correlation_zone,
+            ncs_table="1.25kHz" if pdu.format_is_long else "short",
+        )
+        if isinstance(prach_samples, PrachBuffer):
+            if not prach_samples.full:
+                # Partially-captured occasion: skip detection rather than
+                # combine all-zero symbols (see nof_dropped_prach_occasions).
+                self.nof_dropped_prach_occasions += 1
+                _LOG.warning("PRACH occasion at slot %d dropped: capture "
+                             "buffer not fully filled", slot)
+                return None
+            # (S, P, L, 2) occasion -> (1, P, S, L, 2) detector input with
+            # multi-port non-coherent combining.
+            occ = np.transpose(prach_samples.occasion(getattr(pdu, "fd_occasion", 0)),
+                               (1, 0, 2, 3))[None]
+        else:
+            occ = np.asarray(prach_samples)[None]
+        dets = prach_mod.prach_detect(upload(occ, self.device, torch.float32), det_cfg)[0]
+        return RachIndication(slot=slot, preambles=dets)
 
     def _pusch_cfg(self, slot, pdu, *, nof_csi2: int, two_phase: bool) -> PuschRxConfig:
         """The PuschRxConfig of one PUSCH PDU with its values (rnti, n_id,
@@ -354,7 +380,7 @@ class UpperPhy:
         plan = None
         if nof_ack or nof_csi1:
             plan, _ = cached_demux_plan(rx_cfg, 0 if two_phase else const_csi2)
-        with record_function("upper_phy.pusch_sequences"):
+        with tracing.span("upper_phy.pusch_sequences"):
             ref, scr, signs, fixes = pusch_sequences(valued, plan)
         ref_in = upload(ref, self.device)[None]
         signs_in = upload(signs, self.device)[None]

@@ -1,5 +1,7 @@
 """Config-derived constant tables, built once on the host and kept on each
-device, and the uploads of per-slot host values."""
+device, the uploads of per-slot host values and the fetches of results.
+`upload` and `fetch` count the bytes they move (`utils.tracing` counters
+`h2d_bytes`, `d2h_bytes`)."""
 
 from __future__ import annotations
 
@@ -7,6 +9,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 def on_device(fn, *args, device) -> torch.Tensor:
@@ -36,12 +40,17 @@ def resolve_device(device) -> torch.device:
 def upload(a, device: torch.device, dtype=None) -> torch.Tensor:
     """A host array (or a tensor) on `device`.  To the card a host array goes
     through pinned memory without blocking, so that the upload does not wait
-    for the work already queued on the device."""
+    for the work already queued on the device.  Counts `h2d_bytes`: the
+    bytes handed to the device, none for a tensor already there."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype)
+        out = a.to(device=device, dtype=dtype)
+        if a.device != out.device:
+            tracing.count("h2d_bytes", out.numel() * out.element_size())
+        return out
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dtype is not None:
         t = t.to(dtype)
+    tracing.count("h2d_bytes", t.numel() * t.element_size())
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -60,3 +69,12 @@ def upload_many(arrays: list[np.ndarray], device: torch.device) -> list[torch.Te
         for i, part in zip(idx, parts):
             out[i] = part.view(np.shape(arrays[i]))
     return out
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, numpy; from the card the copy waits for
+    the work queued before it.  bfloat16 crosses as such and becomes float32
+    on the host (numpy has no bfloat16).  Counts `d2h_bytes`."""
+    tracing.count("d2h_bytes", t.numel() * t.element_size())
+    h = t.cpu()
+    return (h.float() if h.dtype == torch.bfloat16 else h).numpy()

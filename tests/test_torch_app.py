@@ -1,7 +1,7 @@
 """PyTorch port, the app and its host modules against the JAX package: the
 simulator app (`apps/gnb_sim`), the entry module (`entry`), `utils/config`,
-`utils/tracing`, `utils/log`, `ran/mcs`, `phy/rx_symbol_handler`, and the
-`ExpertPhyConfig` fields the app reads.
+`utils/log`, `ran/mcs`, `phy/rx_symbol_handler`, and the `ExpertPhyConfig`
+fields the app reads; and the app's `--trace`, a torch.profiler trace.
 
 The JAX app runs once, in a subprocess (`python apps/gnb_sim.py`, its own
 compile cache in a temporary directory), which also keeps the known native
@@ -10,8 +10,8 @@ process.  JAX is imported inside the tests only, so the gloo ranks of the
 multi-device dry run (`dryrun_rank`) never load it.
 
 Tolerances and why:
-  * app lines, CRC flags, config fields, trace structure, hex text, MCS
-    entries, ready PDUs, capture bytes: equal;
+  * app lines, CRC flags, config fields, hex text, MCS entries, ready PDUs,
+    capture bytes: equal;
   * `entry()`'s snr_db on its noise example: 1e-3 dB absolute (float32
     estimates from XLA and torch sum in another order);
   * the dry run's sharded demodulation against `ops.ofdm.ofdm_demodulate`:
@@ -68,16 +68,26 @@ def test_app_default_profile_matches_jax(jax_app, capsys, streaming):
 
 
 def test_app_trace_and_iq_capture(tmp_path, capsys):
-    """--trace writes the JAX app's Chrome-trace spans, and --iq-out the DL
-    samples that `radio.FileIqSource` reads back."""
+    """--trace writes torch.profiler's Chrome trace: per slot the spans
+    app.dl_slot and app.ul_slot, in order, with the port's entry spans nested
+    inside them on the same clock; and --iq-out the DL samples that
+    `radio.FileIqSource` reads back."""
     from srsran_projectvtlmo_tpu_torch.radio import FileIqSource
 
     trace, iq = tmp_path / "t.json", tmp_path / "dl.iq"
     assert gnb_sim.main(APP_ARGS + ["--device", "cpu", "--trace", str(trace),
                                     "--iq-out", str(iq)]) == 0
+    assert not torch.autograd._profiler_enabled()
     events = json.loads(trace.read_text())["traceEvents"]
-    assert [(e["name"], e["ph"]) for e in events[1:]] == [
-        (f"{kind}_slot_{k}", ph) for k in range(2) for kind in ("dl", "ul") for ph in "BE"]
+    spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation"), key=lambda x: x[1])
+    slots = [s for s in spans if s[0].startswith("app.")]
+    assert [name for name, _, _ in slots] == ["app.dl_slot", "app.ul_slot"] * 2
+    inner = [("upper_phy.process_dl_slot", "dl_slot.run"),
+             ("upper_phy.process_ul_slot", "upper_phy.ul_ofdm")] * 2
+    for (outer, s0, e0), (entry_span, leaf) in zip(slots, inner):
+        nested = [n for n, s, e in spans if s0 <= s and e <= e0 and n != outer]
+        assert nested.count(entry_span) == 1 and leaf in nested, (outer, nested)
     nsamp = ofdm.slot_sample_count(512, 1, 0) + ofdm.slot_sample_count(512, 1, 1)
     assert iq.stat().st_size == nsamp * 8
     assert np.isfinite(FileIqSource(iq).receive(nsamp)).all()
@@ -158,31 +168,6 @@ def test_load_config_matches_jax(tmp_path):
     p.write_text("expert_phy: {use_pallas_decoder: true}\n")
     with pytest.raises(ValueError, match="unknown ExpertPhyConfig field"):
         load_config(p)
-
-
-def test_tracer_writes_the_jax_trace(tmp_path):
-    """The same calls on both tracers: the same event names, phases, nesting
-    order and instant arguments (timestamps aside)."""
-    from srsran_projectvtlmo_tpu.utils import tracing as jax_tracing
-    from srsran_projectvtlmo_tpu_torch.utils import tracing
-
-    def drive(mod, path):
-        tr = mod.FileEventTracer(str(path))
-        with tr.span("slot_0"):
-            tr.begin("dl")
-            tr.instant("cb_decode", count=3)
-            tr.end("dl")
-            with tr.span("ul"):
-                tr.instant("crc", ok=True)
-        tr.close()
-        null = mod.NullTracer()
-        with null.span("x"):
-            null.instant("y")
-        null.close()
-        events = json.loads(path.read_text())["traceEvents"]
-        return [{k: v for k, v in e.items() if k not in ("ts", "tid")} for e in events]
-
-    assert drive(tracing, tmp_path / "a.json") == drive(jax_tracing, tmp_path / "b.json")
 
 
 def test_log_matches_jax():

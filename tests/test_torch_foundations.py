@@ -36,7 +36,7 @@ _MODULES = ("models.pusch_rx", "models.sch_config", "models.sch_tx", "models.uls
             "ops.polar.code", "ops.polar.allocate", "ops.polar.encode", "ops.polar.rate_match",
             "ops.polar.decode", "phy.pusch_uci", "ran.ldpc_params", "ran.modulation", "ran.sch",
             "ran.ulsch_info", "fapi.pdus", "fapi.validators", "ops.low_papr", "ops.prach",
-            "ops.srs", "phy.error_handler", "phy.harq", "phy.metrics", "phy.prach_buffer",
+            "ops.srs", "phy.error_handler", "phy.harq", "phy.prach_buffer",
             "phy.pucch", "phy.realtime", "phy.upper_phy", "phy.warmup", "ran.prach_config",
             "ran.prach_cyclic_shifts", "ran.prach_preamble", "ops.polar.interleave", "ops.csi_rs",
             "ran.re_pattern", "ran.pdcch_mapping", "phy.pbch", "phy.pdcch", "models.pdsch_tx",

@@ -3,7 +3,7 @@ package's host modules (`ran/ldpc_params`, `ran/modulation`, `ran/sch`,
 `ran/ulsch_info`, `ops/prg`, `ops/dmrs`, `ops/ulsch_demux`, `ops/polar/code`;
 for the uplink FAPI entry point `fapi/pdus`, `fapi/validators`,
 `ran/prach_preamble`, `ran/prach_cyclic_shifts`, `ran/prach_config`,
-`ops/low_papr`, `phy/error_handler`, `phy/metrics`; for the downlink slot
+`ops/low_papr`, `phy/error_handler`; for the downlink slot
 `ran/re_pattern`, `ran/pdcch_mapping`, `ops/csi_rs`; for the scaling layer
 `parallel/sample_shard._demod_plan`) and of the base-graph,
 polar, low-PAPR and PRACH data files, so that it imports nothing of the JAX
@@ -233,7 +233,7 @@ def test_polar_data_file_equal():
 
 _UL_COPIES = ("fapi/__init__.py", "fapi/pdus.py", "fapi/validators.py", "ran/prach_preamble.py",
               "ran/prach_cyclic_shifts.py", "ran/prach_config.py", "ops/low_papr.py",
-              "phy/error_handler.py", "phy/metrics.py")
+              "phy/error_handler.py")
 
 
 def _code(path: Path) -> str:
@@ -429,7 +429,7 @@ def test_sample_shard_demod_plan_equal(args):
 _APP_COPIES = ("ran/mcs.py", "ran/slot.py", "radio/__init__.py", "radio/gateway.py",
                "ofh/__init__.py", "ofh/ecpri.py", "ofh/ethernet.py", "ofh/cplane.py",
                "ofh/uplane.py", "ofh/reception.py", "utils/sanitizer.py", "utils/bits.py",
-               "utils/log.py", "utils/tracing.py", "phy/rx_symbol_handler.py")
+               "utils/log.py", "phy/rx_symbol_handler.py")
 
 
 @pytest.mark.parametrize("rel", _APP_COPIES)

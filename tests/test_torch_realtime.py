@@ -1,8 +1,7 @@
 """PyTorch port, the realtime slot machinery and the host modules around the
 uplink entry point, against the JAX package: `phy/realtime` (the cases of
-tests/test_realtime.py), `phy/error_handler`, `phy/metrics`,
-`phy/prach_buffer` (the cases of tests/test_prach_buffer.py) and
-`phy/warmup.precompile_pusch`.
+tests/test_realtime.py), `phy/error_handler`, `phy/prach_buffer` (the cases
+of tests/test_prach_buffer.py) and `phy/warmup.precompile_pusch`.
 
 Threads and queues are plain Python in both packages; the device work they
 drive is the port's `UpperPhy` on the CPU, held against the JAX `UpperPhy` on
@@ -22,7 +21,6 @@ import torch
 from srsran_projectvtlmo_tpu.models.pusch_rx import PuschRxConfig as JaxPuschRxConfig
 from srsran_projectvtlmo_tpu.ops import prach as jax_prach
 from srsran_projectvtlmo_tpu.phy import error_handler as jax_error_handler
-from srsran_projectvtlmo_tpu.phy import metrics as jax_metrics
 from srsran_projectvtlmo_tpu.phy import realtime as jax_realtime
 from srsran_projectvtlmo_tpu.phy import upper_phy as jax_upper_phy
 from srsran_projectvtlmo_tpu.phy import warmup as jax_warmup
@@ -37,7 +35,6 @@ from srsran_projectvtlmo_tpu_torch.models.ulsch_tx import cached_ulsch_tx
 from srsran_projectvtlmo_tpu_torch.ops import prach
 from srsran_projectvtlmo_tpu_torch.phy.dl_slot import get_dl_slot_program
 from srsran_projectvtlmo_tpu_torch.phy.error_handler import UpperPhyErrorHandler
-from srsran_projectvtlmo_tpu_torch.phy.metrics import MetricsHub
 from srsran_projectvtlmo_tpu_torch.phy.prach_buffer import (
     PrachBuffer, PrachBufferFormat, PrachBufferPool)
 from srsran_projectvtlmo_tpu_torch.phy.realtime import (
@@ -225,7 +222,7 @@ class TestPrachCollector:
         assert c.on_symbol(4, 2, np.ones(8)) is None
 
 
-# ------------------------------------------------- error handler, metrics --
+# ----------------------------------------------------------- error handler --
 
 def test_error_handler_counts_as_jax():
     events, jevents = [], []
@@ -240,26 +237,6 @@ def test_error_handler_counts_as_jax():
         h.on_failure(4, RuntimeError("x"))
     assert events == jevents == [("late_dl", 1), ("late_ul", 3), ("failed", 4)]
     assert vars(eh.stats) == vars(jeh.stats) == {"late_dl": 1, "late_ul": 1, "failed": 1}
-
-
-def test_metrics_hub_as_jax(tmp_path, capsys):
-    hubs = (MetricsHub(), jax_metrics.MetricsHub())
-    for hub in hubs:
-        for i in range(5):
-            hub.on_slot()
-            hub.on_pusch(crc_ok=i != 2, snr_db=10.0 + i, ta_s=1e-7 * i, evm=0.01 * i)
-            hub.on_uci(valid=i % 2 == 0)
-        hub.on_prach(0)
-        hub.on_prach(2)
-    timing = ("slot_rate", "elapsed_s")
-    snaps = [{k: v for k, v in h.snapshot().items() if k not in timing} for h in hubs]
-    assert snaps[0] == snaps[1]
-    assert snaps[0]["pusch"] == {"count": 5, "ok_ratio": 0.8, "avg_snr_db": 12.0}
-    hubs[0].print_stdout()
-    line = capsys.readouterr().out
-    assert "pusch: n=5 ok=80.00% snr=12.0dB" in line and "prach: n=2 ok=50.00%" in line
-    hubs[0].to_json(str(tmp_path / "m.json"))
-    assert (tmp_path / "m.json").read_text().count('"count"') == 3
 
 
 # ------------------------------------------------------------- PRACH buffer --
