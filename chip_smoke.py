@@ -849,7 +849,7 @@ def phase_options(fx, gen) -> dict:
 def device_events(prof):
     """(kernels, annotation spans) among a profile's device events."""
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    span = lambda e: e.name.startswith(("pusch_rx.", "upper_phy."))
+    span = lambda e: e.name.startswith(("pusch_rx.", "upper_phy.", "dl_slot."))
     return [e for e in events if not span(e)], [e for e in events if span(e)]
 
 

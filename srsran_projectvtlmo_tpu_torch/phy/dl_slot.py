@@ -17,6 +17,11 @@ CSI-RS sits on PDSCH REs the grid holds their sum.  Everything accumulates
 in complex64; with `grid_bf16` the grid is stored as bfloat16 real pairs
 once, at the end, and the OFDM modulator upcasts it.
 
+On a card the assembly of one replay key (OFDM phase, batch size, buffer
+starts) runs eagerly once, is captured as a CUDA graph on its second call
+and replayed after that: one graph launch in place of the slot's ~190
+kernels, the same kernels on the same inputs (`_SlotGraph`).
+
 Precoding is a (P x L) complex matrix per PDSCH, 1-4 layers onto up to 4
 ports; DM-RS type 1 maps layers {0,1} to CDM group 0 (even subcarriers,
 fd-OCC +/+ and +/-) and layers {2,3} to CDM group 1 (odd subcarriers), per
@@ -28,8 +33,10 @@ lib/phy/upper/channel_processors/pdsch_processor_concurrent_impl.cpp:31-58.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,7 +52,7 @@ from ..ops.precoding import identity_precoder, layer_map
 from ..ran.pdcch_mapping import (
     cce_to_reg_interleaved, cce_to_reg_non_interleaved, pdcch_coreset_prbs, pdcch_re_indices)
 from ..ran.re_pattern import reserved_mask_window
-from ..utils import tracing
+from ..utils import log, tracing
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
 from ..utils.tables import resolve_device, upload_many
 from . import pbch as pbch_mod
@@ -192,8 +199,12 @@ def _stack(*entries):
     return np.stack(entries)
 
 
-def _arrays(tree) -> list[np.ndarray]:
-    if isinstance(tree, np.ndarray):
+_LEAVES = (np.ndarray, torch.Tensor)
+
+
+def _arrays(tree) -> list:
+    """The arrays (numpy or torch) of a value tree, in order."""
+    if isinstance(tree, _LEAVES):
         return [tree]
     if isinstance(tree, tuple):
         return [x for t in tree for x in _arrays(t)]
@@ -201,11 +212,74 @@ def _arrays(tree) -> list[np.ndarray]:
 
 
 def _replace_arrays(tree, it):
-    if isinstance(tree, np.ndarray):
+    if isinstance(tree, _LEAVES):
         return next(it)
     if isinstance(tree, tuple):
         return tuple(_replace_arrays(t, it) for t in tree)
     return tree
+
+
+def _tiled_base(views: list[torch.Tensor]) -> torch.Tensor | None:
+    """The flat tensor that `views`, in order, tile whole (as `upload_many`
+    returns the arrays of one dtype), or None."""
+    base = views[0]._base
+    if base is None or base.dim() != 1:
+        return None
+    at = base.storage_offset()
+    for v in views:
+        if v._base is not base or v.storage_offset() != at or not v.is_contiguous():
+            return None
+        at += v.numel()
+    return base if at == base.storage_offset() + base.numel() else None
+
+
+#: Position of `pdsch_k0p` in `stack_values`' output (the batch size first).
+_K0P = 8
+#: Replay keys per program that keep a CUDA graph, the least recently used
+#: evicted first: 4 redundancy versions x 2 OFDM phases of one batch size.
+GRAPH_KEYS = 8
+#: The state of a replay key seen once (its next call captures) and of one
+#: whose capture failed (it runs eagerly).
+_WARM, _EAGER = "warm", "eager"
+
+
+class _SlotGraph:
+    """`DlSlotProgram._assemble` of one replay key captured as a CUDA graph.
+
+    Its static inputs have `stack_values`' layout: one flat tensor per dtype
+    holding the arrays of that dtype in order, with a view for each.  `run`
+    copies a call's uploads into them (one `copy_` per dtype), replays, and
+    returns clones of the static outputs, which the next replay overwrites."""
+
+    def __init__(self, program: "DlSlotProgram", slot_in_sf: int, stacked, pool):
+        arrays = _arrays(stacked)
+        groups: dict[torch.dtype, list[int]] = {}
+        for i, a in enumerate(arrays):
+            groups.setdefault(a.dtype, []).append(i)
+        self.groups = list(groups.values())
+        self.flat, self.views = [], [None] * len(arrays)
+        for idx in self.groups:
+            flat = torch.empty(sum(arrays[i].numel() for i in idx), dtype=arrays[idx[0]].dtype,
+                               device=program.device)
+            for i, part in zip(idx, flat.split([arrays[i].numel() for i in idx])):
+                self.views[i] = part.view(arrays[i].shape)
+            self.flat.append(flat)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            self.out = program._assemble(slot_in_sf,
+                                         *_replace_arrays(stacked, iter(self.views)))
+
+    def run(self, stacked) -> tuple[torch.Tensor, torch.Tensor]:
+        arrays = _arrays(stacked)
+        for flat, idx in zip(self.flat, self.groups):
+            src = _tiled_base([arrays[i] for i in idx])
+            if src is not None and src.numel() == flat.numel():
+                flat.copy_(src)
+            else:
+                for i in idx:
+                    self.views[i].copy_(arrays[i])
+        self.graph.replay()
+        return self.out[0].clone(), self.out[1].clone()
 
 
 class DlSlotProgram:
@@ -257,6 +331,16 @@ class DlSlotProgram:
             idx = [(port * 14 + int(sym)) * nsubc + subc
                    for port, (symbols, subc, _) in enumerate(pat) for sym in symbols]
             self.csi_re.append(torch.as_tensor(np.concatenate(idx).astype(np.int64), device=dev))
+
+        # On a card: the replay keys' states, least recently used first (a
+        # `_SlotGraph`, `_WARM` or `_EAGER`), the memory pool their graphs
+        # share, and what serialises their replays (`_replay`).
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._graph_lock = threading.Lock()
+        self._graph_pool = self._graph_done = None
+        if dev.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_done = torch.cuda.Event()
 
     def _dmrs_rows(self, i: int, pil: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Base pilots (B, ndmrs, npil) and weights (B, P, L) complex -> the
@@ -331,10 +415,62 @@ class DlSlotProgram:
     @torch.no_grad()
     def run_stacked(self, slot: int, stacked):
         """The batched slot assembly on `stack_values` output (span
-        `dl_slot.run`: the host issuing the slot's device work).
-        Returns (grid (B, P, 14, nsubc, 2), samples (B, P, nsamples, 2))."""
+        `dl_slot.run`: the host issuing the slot's device work), through a
+        CUDA graph on a card (`_replay`), eagerly elsewhere.  Returns (grid
+        (B, P, 14, nsubc, 2), samples (B, P, nsamples, 2)), the caller's own."""
         with tracing.span("dl_slot.run"):
-            return self._assemble(slot % (1 << self.cell.numerology), *stacked)
+            slot_in_sf = slot % (1 << self.cell.numerology)
+            if self.device.type != "cuda":
+                return self._assemble(slot_in_sf, *stacked)
+            return self._replay(slot_in_sf, stacked)
+
+    def _replay(self, slot_in_sf: int, stacked):
+        """`_assemble` of a replay key: eager on the key's first call, captured
+        as a `_SlotGraph` on its second, replayed after that.  The key is what
+        the eager program branches on, on the host: the OFDM phase, the batch
+        size and the buffer starts; every other input is a device value.
+        Counts `dl_graph_captures` per capture and `dl_graph_replays` per
+        replay (0 on an eager call).
+
+        The graphs of one program share one memory pool, so a replay may write
+        over memory that holds another graph's static outputs.  That is safe
+        because the replays of one program are serial (the lock on the host;
+        on the device each copy-in waits for the previous copy-out, whatever
+        stream it runs on) and every call returns clones of the static
+        outputs, taken before the next replay can start."""
+        key = (slot_in_sf, stacked[0], stacked[_K0P])
+        with self._graph_lock:
+            state = self._graphs.get(key)
+            if state is None:
+                self._graphs[key] = _WARM
+                if len(self._graphs) > GRAPH_KEYS:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+            if state is _WARM:
+                state = self._graphs[key] = self._capture(key, slot_in_sf, stacked)
+            if not isinstance(state, _SlotGraph):
+                tracing.count("dl_graph_replays", 0)
+                return self._assemble(slot_in_sf, *stacked)
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._graph_done)
+            out = state.run(stacked)
+            self._graph_done.record(stream)
+            tracing.count("dl_graph_replays", 1)
+            return out
+
+    def _capture(self, key, slot_in_sf: int, stacked):
+        """The key's `_SlotGraph`, or `_EAGER` where the capture fails (said
+        once, in the PHY log)."""
+        try:
+            graph = _SlotGraph(self, slot_in_sf, stacked, self._graph_pool)
+        except RuntimeError as exc:
+            log.get_logger("PHY").warning(
+                "DL slot graph capture failed for replay key %s; the key runs eagerly: %s",
+                key, exc)
+            return _EAGER
+        tracing.count("dl_graph_captures", 1)
+        return graph
 
     def run_batched(self, slot: int, value_args_batch):
         """`stack_values` + `run_stacked` in one call."""

@@ -4,7 +4,9 @@
 cases of tests/test_dl_slot.py and tests/test_bf16_grid.py at <= 52 PRB:
 4x2 precoding, interleaved PDCCH, CSI-RS rows and density 0.5, CSI-RS inside
 the PDSCH and a CORESET reservation with PDCCH, rv 0-3, UE churn on one
-plan, the bf16 grid, and `DlSlotProgram.run_batched` against per-slot calls.
+plan, the bf16 grid, and `DlSlotProgram.run_batched` against per-slot calls;
+on a CPU device `run_stacked` is the eager `_assemble` and keeps no CUDA
+graph (the card's side: tests/test_torch_dl_graph.py).
 
 Tolerances and why:
   * float32 grids: 1e-5 absolute (precoding products summed in another
@@ -32,6 +34,8 @@ from srsran_projectvtlmo_tpu_torch.phy import pdcch as pdcch_mod
 from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig, FapiValidationError, UpperPhy
 from srsran_projectvtlmo_tpu_torch.ran.modulation import Modulation
 from srsran_projectvtlmo_tpu_torch.ran.re_pattern import coreset_pattern, csi_rs_patterns
+from srsran_projectvtlmo_tpu_torch.utils import tracing
+from srsran_projectvtlmo_tpu_torch.utils.tables import upload_many
 from tests.test_torch_upper_phy import to_jax
 
 CELL4 = CellConfig(nof_rb=52, dft_size=1024, numerology=1, phys_cell_id=1, nof_tx_ports=4,
@@ -329,3 +333,44 @@ def test_fetch_false_single_port_and_validation():
     with pytest.raises(jax_upper_phy.FapiValidationError) as jerr:
         jax_upper_phy.UpperPhy(to_jax(CELL1)).process_dl_slot(to_jax(bad), to_jax(data))
     assert str(terr.value) == str(jerr.value)
+
+
+def test_cpu_run_stacked_is_eager_and_never_captures():
+    """On a CPU device every `run_stacked` call, the first and the later ones
+    of both OFDM phases, is `_assemble` itself: no replay key is kept, no
+    graph is captured or replayed."""
+    cell = dataclasses.replace(CELL4, nof_rb=24, dft_size=512)
+    req = DlTtiRequest(
+        slot=4, pdsch=(pdsch(rnti=0x77, rv=2, rb_start=0, rb_size=24, start_symbol=2,
+                             dmrs_symbols=(2,)),),
+        pdcch=(with_payload(PdcchPdu(rnti=0x77, nof_dci_bits=40, aggregation_level=4,
+                                     cce_index=0, start_symbol=1, n_id=5, n_rnti=0x77,
+                                     coreset_nof_rb=24),
+                            np.random.default_rng(9).integers(0, 2, 40).astype(np.uint8)),),
+        ssb=(SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=3, half_radio_frame=False),),
+        csi_rs=(CsiRsPdu(nof_rb=24, symbol=13, subcarrier_offset=3, scrambling_id=5),))
+    program = dl_slot.DlSlotProgram(dl_slot.plan_key_for(req, cell), cell, "cpu")
+    values = dl_slot.build_dl_slot_inputs(program, req, tx_data(req, cell, 9), req.slot)
+    stacked = program.stack_values([program.value_args(req, values)] * 2)
+    for slot in (4, 4, 5, 5, 5):
+        with tracing.entry("test.dl_slot") as rec:
+            grid, samples = program.run_stacked(slot, stacked)
+        assert "dl_graph_replays" not in rec and "dl_graph_captures" not in rec
+        want_grid, want_samples = program._assemble(slot % 2, *stacked)
+        assert torch.equal(grid, want_grid) and torch.equal(samples, want_samples)
+    assert not program._graphs and program._graph_pool is None
+
+
+def test_graph_copy_in_finds_the_uploads_flat_tensor():
+    """`_tiled_base` gives the one flat tensor per dtype that `upload_many`
+    uploads, when its views are given whole and in order, and None
+    otherwise (the graph then copies array by array)."""
+    arrays = [np.arange(6, dtype=np.uint8).reshape(2, 3), np.ones((2, 2), np.float32),
+              np.arange(4, dtype=np.uint8) + 6]
+    up = upload_many(arrays, torch.device("cpu"))
+    base = dl_slot._tiled_base([up[0], up[2]])
+    assert base is not None and torch.equal(base, torch.arange(10, dtype=torch.uint8))
+    assert dl_slot._tiled_base([up[1]]).shape == (4,)
+    assert dl_slot._tiled_base([up[2], up[0]]) is None
+    assert dl_slot._tiled_base([up[0]]) is None
+    assert dl_slot._tiled_base([torch.zeros(3)]) is None
