@@ -1709,7 +1709,8 @@ def mc_dl_requests(csi_rs_last: bool = True):
 def phase_multi_cell_dl(smi: str) -> None:
     """(22) `MultiCellUpperPhy.process_dl_slot`: four north-star DL slots of
     one structure as one batched call, against per-cell `process_dl_slot`
-    on the card (bf16 grid bit for bit, samples to MC_DL_SAMPLES_REL_RMS);
+    on the card (bf16 grid bit for bit, samples to MC_DL_SAMPLES_REL_RMS),
+    and with fetch=True as float32 real pairs equal to the call's tensors;
     then a set with the last cell's CSI-RS left out, which takes the
     per-cell fallback and must return the same real-pair layout."""
     from srsran_projectvtlmo_tpu_torch.ops import ofdm
@@ -1739,6 +1740,15 @@ def phase_multi_cell_dl(smi: str) -> None:
         if shapes != want or grid.dtype != torch.bfloat16 or not grid_equal \
                 or not rel <= MC_DL_SAMPLES_REL_RMS:
             raise SystemExit(f"multi-cell DL {name}: differs from per-cell dispatch")
+        # fetch=True: the same slots as float32 real pairs, through pinned staging.
+        grid_h, samples_h = mc.process_dl_slot(reqs, datas, fetch=True)
+        fetched_equal = (grid_h.dtype == samples_h.dtype == np.float32
+                         and np.array_equal(grid_h, grid.float().cpu().numpy())
+                         and np.array_equal(samples_h, samples.cpu().numpy()))
+        print(f"multi-cell DL {name}, fetch=True: float32 pairs equal to the call's tensors: "
+              f"{fetched_equal}")
+        if not fetched_equal:
+            raise SystemExit(f"multi-cell DL {name}: fetch=True differs from the device tensors")
 
 
 def free_port() -> int:

@@ -133,7 +133,7 @@ class MultiCellUpperPhy:
             if not fetch:
                 return grid, samples
             with tracing.span("upper_phy.dl_fetch"):
-                return tables.fetch(grid), tables.fetch(samples)
+                return tables.fetch_dl_outputs(grid, samples, complex_grid=False)
 
     # ------------------------------------------------------------------ UL --
 

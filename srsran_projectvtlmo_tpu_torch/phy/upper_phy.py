@@ -198,7 +198,8 @@ class UpperPhy:
         pinned copy per dtype.  Spans (`utils.tracing`), in order:
         `upper_phy.dl_validate`, `upper_phy.dl_plan`, `upper_phy.dl_values`
         (`dl_slot.host_values`, `dl_slot.upload`), `dl_slot.run` and, with
-        fetch=True, `upper_phy.dl_fetch`.
+        fetch=True, `upper_phy.dl_fetch` (on a card `upper_phy.dl_fetch_wait`
+        inside: `utils.tables.fetch_dl_outputs`).
         """
         with tracing.entry("upper_phy.process_dl_slot"):
             if validate:
@@ -221,9 +222,8 @@ class UpperPhy:
             if not fetch:
                 return grid_pair[0], samples[0]
             with tracing.span("upper_phy.dl_fetch"):
-                g = tables.fetch(grid_pair[0])
-                grid = g[..., 0].astype(np.complex64) + 1j * g[..., 1].astype(np.complex64)
-                samples = tables.fetch(samples[0])
+                grid, samples = tables.fetch_dl_outputs(grid_pair[0], samples[0],
+                                                        complex_grid=True)
                 if self.cfg.nof_tx_ports == 1:
                     return grid[0], samples[0]
                 return grid, samples

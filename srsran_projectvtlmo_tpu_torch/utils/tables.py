@@ -1,7 +1,7 @@
 """Config-derived constant tables, built once on the host and kept on each
 device, the uploads of per-slot host values and the fetches of results.
-`upload` and `fetch` count the bytes they move (`utils.tracing` counters
-`h2d_bytes`, `d2h_bytes`)."""
+`upload`, `fetch` and `fetch_dl_outputs` count the bytes they move
+(`utils.tracing` counters `h2d_bytes`, `d2h_bytes`)."""
 
 from __future__ import annotations
 
@@ -78,3 +78,44 @@ def fetch(t: torch.Tensor) -> np.ndarray:
     tracing.count("d2h_bytes", t.numel() * t.element_size())
     h = t.cpu()
     return (h.float() if h.dtype == torch.bfloat16 else h).numpy()
+
+
+def fetch_dl_outputs(grid: torch.Tensor, samples: torch.Tensor,
+                     complex_grid: bool) -> tuple[np.ndarray, np.ndarray]:
+    """A DL slot's grid real pair (..., 2), bfloat16 or float32, and its
+    samples on the host, numpy, in fresh arrays that are the caller's own:
+    the grid complex64 (...) with `complex_grid`, else float32 (..., 2), the
+    samples float32 as `fetch` gives them.
+
+    From the card both tensors are copied without blocking into pinned
+    staging from torch's caching host allocator (reused after warm-up),
+    queued behind the work on the current stream, and the host waits once,
+    on an event recorded after the copies (span `upper_phy.dl_fetch_wait`).
+    The arrays are then built from the staging with no temporaries: one copy
+    that widens the grid to float32 (exact), viewed as complex64, and one
+    copy of the samples.  Counts `d2h_bytes` as `fetch` does, and
+    `dl_pinned_fetches`: 1 for a fetch from the card, 0 otherwise."""
+    tracing.count("d2h_bytes", sum(t.numel() * t.element_size() for t in (grid, samples)))
+    pinned = grid.device.type == "cuda"
+    tracing.count("dl_pinned_fetches", int(pinned))
+    if pinned:
+        staged = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (grid, samples)]
+        for dst, src in zip(staged, (grid, samples)):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(grid.device))
+        with tracing.span("upper_phy.dl_fetch_wait"):
+            done.synchronize()
+        grid, samples = staged
+    g = _host_copy(grid)
+    return (g.view(np.complex64)[..., 0] if complex_grid else g), _host_copy(samples)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's values in a fresh C-ordered numpy array, bfloat16
+    widened to float32 in the same copy."""
+    if t.dtype != torch.bfloat16:
+        return t.numpy().copy()
+    out = np.empty(tuple(t.shape), np.float32)
+    torch.from_numpy(out).copy_(t)
+    return out

@@ -13,10 +13,12 @@ multi-cell class falling back to one cell's `UpperPhy`) adds to the outer
 record.  Counters always count: a few integer adds per call.
 
 Counters: `h2d_bytes` (`utils.tables.upload`) and `d2h_bytes`
-(`utils.tables.fetch`), the bytes an entry moves between host and device;
-`dl_graph_captures` and `dl_graph_replays` (`phy.dl_slot`), the CUDA graphs
-of the DL slot captured and replayed (a DL slot run on a card adds 0
-replays when it runs eagerly).
+(`utils.tables.fetch`, `fetch_dl_outputs`), the bytes an entry moves between
+host and device; `dl_graph_captures` and `dl_graph_replays` (`phy.dl_slot`),
+the CUDA graphs of the DL slot captured and replayed (a DL slot run on a
+card adds 0 replays when it runs eagerly); `dl_pinned_fetches`
+(`utils.tables.fetch_dl_outputs`), DL fetches through pinned staging (0 on
+the CPU).
 """
 
 from __future__ import annotations

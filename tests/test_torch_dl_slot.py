@@ -34,7 +34,7 @@ from srsran_projectvtlmo_tpu_torch.phy import pdcch as pdcch_mod
 from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig, FapiValidationError, UpperPhy
 from srsran_projectvtlmo_tpu_torch.ran.modulation import Modulation
 from srsran_projectvtlmo_tpu_torch.ran.re_pattern import coreset_pattern, csi_rs_patterns
-from srsran_projectvtlmo_tpu_torch.utils import tracing
+from srsran_projectvtlmo_tpu_torch.utils import tables, tracing
 from srsran_projectvtlmo_tpu_torch.utils.tables import upload_many
 from tests.test_torch_upper_phy import to_jax
 
@@ -374,3 +374,100 @@ def test_graph_copy_in_finds_the_uploads_flat_tensor():
     assert dl_slot._tiled_base([up[2], up[0]]) is None
     assert dl_slot._tiled_base([up[0]]) is None
     assert dl_slot._tiled_base([torch.zeros(3)]) is None
+
+
+# ------------------------------------------------------------ the DL fetch --
+
+def _fetch_request(cell: CellConfig, slot: int, seed: int) -> DlTtiRequest:
+    """A slot of every channel on a 24-PRB cell: 2-layer QAM16 PDSCH on 4
+    ports (1 layer, no precoder, on 1 port), PDCCH, SSB and CSI-RS, its UE
+    and DCI from the seed."""
+    rng = np.random.default_rng(seed)
+    rnti = int(rng.integers(1, 65520))
+    ports = cell.nof_tx_ports
+    ue = pdsch(rnti=rnti, rb_start=0, rb_size=24, start_symbol=2, dmrs_symbols=(2,),
+               n_id=int(rng.integers(0, 1008)),
+               **({} if ports == 4 else dict(nof_layers=1, precoding=None)))
+    return DlTtiRequest(
+        slot=slot, pdsch=(ue,),
+        pdcch=(with_payload(PdcchPdu(rnti=rnti, nof_dci_bits=40, aggregation_level=4,
+                                     cce_index=0, start_symbol=1, n_id=seed, n_rnti=rnti,
+                                     coreset_nof_rb=24),
+                            rng.integers(0, 2, 40).astype(np.uint8)),),
+        ssb=(SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=seed, half_radio_frame=False),),
+        csi_rs=(CsiRsPdu(nof_rb=24, symbol=13, subcarrier_offset=3, scrambling_id=seed),))
+
+
+def _fetch_before_staging(grid_pair: torch.Tensor, samples: torch.Tensor):
+    """The DL fetch as `UpperPhy.process_dl_slot` wrote it before the
+    pinned staging: the grid through float32 numpy and three complex64
+    temporaries, the samples as the tensor's values."""
+    g = grid_pair.float().numpy()
+    return (g[..., 0].astype(np.complex64) + 1j * g[..., 1].astype(np.complex64),
+            samples.numpy())
+
+
+FETCH_CELLS = {
+    "4port_bf16": dataclasses.replace(CELL4, nof_rb=24, dft_size=512, grid_bf16=True),
+    "4port_float32": dataclasses.replace(CELL4, nof_rb=24, dft_size=512),
+    "1port": CELL1,
+}
+
+
+@pytest.mark.parametrize("name", FETCH_CELLS)
+def test_fetch_dl_outputs_equals_the_fetch_before_staging(name):
+    """`tables.fetch_dl_outputs` and `process_dl_slot(fetch=True)` give the
+    arrays of the old fetch expression (values, dtype, shape, C order; a
+    one-port cell squeezed); the arrays are the caller's own: a later call,
+    or zeroing the fetched tensors, leaves them as they were; the entry
+    counts the same `d2h_bytes` and, on the CPU, `dl_pinned_fetches` 0."""
+    cell = FETCH_CELLS[name]
+    phy = UpperPhy(cell, device="cpu")
+    req = _fetch_request(cell, 4, 1)
+    data = tx_data(req, cell, 1)
+    grid_pair, samples = phy.process_dl_slot(req, data, fetch=False)
+    want = [w.copy() for w in _fetch_before_staging(grid_pair, samples)]
+    nbytes = sum(t.numel() * t.element_size() for t in (grid_pair, samples))
+    with tracing.entry("test.dl_fetch") as rec:
+        got = tables.fetch_dl_outputs(grid_pair, samples, complex_grid=True)
+    assert rec == {"entry": "test.dl_fetch", "d2h_bytes": nbytes, "dl_pinned_fetches": 0}
+    entry_got = phy.process_dl_slot(req, data)
+    rec = tracing.last_calls(1)[0]
+    assert rec["d2h_bytes"] == nbytes and rec["dl_pinned_fetches"] == 0
+    squeezed = [w[0] for w in want] if cell.nof_tx_ports == 1 else want
+    for outs, wants in ((got, want), (entry_got, squeezed)):
+        for a, w in zip(outs, wants):
+            assert a.dtype == w.dtype and a.shape == w.shape and a.flags.c_contiguous
+            np.testing.assert_array_equal(a, w)
+    kept = [a.copy() for a in entry_got]
+    other = _fetch_request(cell, 5, 2)
+    later = phy.process_dl_slot(other, tx_data(other, cell, 2))
+    assert not np.array_equal(later[0], entry_got[0])
+    for a, k in zip(entry_got, kept):
+        np.testing.assert_array_equal(a, k)
+    grid_pair.zero_(), samples.zero_()
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a, w)
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["batched", "per_cell"])
+def test_multi_cell_fetch_returns_float32_pairs_of_the_cells(batched):
+    """`MultiCellUpperPhy.process_dl_slot(fetch=True)` on two bf16 cells, one
+    batched call or the per-cell fallback: float32 real pairs equal to each
+    cell's own `process_dl_slot(fetch=False)` values."""
+    from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
+
+    cell = FETCH_CELLS["4port_bf16"]
+    reqs = [_fetch_request(cell, 4, seed) for seed in (3, 4)]
+    if not batched:
+        reqs[1] = dataclasses.replace(reqs[1], csi_rs=())
+    datas = [tx_data(r, cell, seed) for r, seed in zip(reqs, (3, 4))]
+    grids, samples = MultiCellUpperPhy(cell, 2, device="cpu").process_dl_slot(
+        reqs, datas, fetch=True)
+    assert grids.dtype == samples.dtype == np.float32
+    assert grids.shape == (2, 4, 14, 24 * 12, 2)
+    phy = UpperPhy(cell, device="cpu")
+    for c in range(2):
+        g, s = phy.process_dl_slot(reqs[c], datas[c], fetch=False)
+        np.testing.assert_array_equal(grids[c], g.float().numpy())
+        np.testing.assert_array_equal(samples[c], s.numpy())

@@ -186,7 +186,7 @@ def test_records_stay_whole_under_thread_switches():
 def test_dl_entry_counts_the_bytes_it_moves_at_the_north_star_width():
     """One DL call on a 273-PRB 4-port cell: `h2d_bytes` is the stacked value
     arrays' nbytes, `d2h_bytes` the fetched bf16 grid pair and float32
-    samples' (1,142,752 and 2,699,904 bytes)."""
+    samples' (1,142,752 and 2,699,904 bytes); on the CPU no fetch is pinned."""
     config, pool = dl_cell()
     phy = harness.make_phy(config, "cpu")
     req, data = pool[0].args
@@ -198,7 +198,7 @@ def test_dl_entry_counts_the_bytes_it_moves_at_the_north_star_width():
     grid_pair_bytes = grid.size * 2 * torch.bfloat16.itemsize
     assert rec == {"entry": "upper_phy.process_dl_slot",
                    "h2d_bytes": sum(a.nbytes for a in stacked),
-                   "d2h_bytes": grid_pair_bytes + samples.nbytes}
+                   "d2h_bytes": grid_pair_bytes + samples.nbytes, "dl_pinned_fetches": 0}
     assert grid.shape == (4, 14, 3276) and samples.dtype == np.float32
     assert (rec["h2d_bytes"], rec["d2h_bytes"]) == (1_142_752, 2_699_904)
 
@@ -305,7 +305,7 @@ def test_reader_on_a_synthetic_trace(name, want):
     assert reader.read(ctx) == pytest.approx(want, rel=1e-12)
 
 
-@pytest.mark.parametrize("name", NEW_READERS)
+@pytest.mark.parametrize("name", NEW_READERS + ("dl_fetch_wait_host_ms", "dl_pinned_fetch_share"))
 def test_reader_reads_nothing_from_a_program_without_the_labels(name, monkeypatch):
     """A program without the spans or `last_calls` (the benchmark also runs
     older revisions): the reader returns None and does not raise."""
@@ -329,3 +329,5 @@ def test_traced_harness_run_reports_every_reader():
     assert m["d2h_bytes_per_slot"] == 4 * 14 * 288 * 2 * 2 + 4 * mean_samples * 2 * 4
     assert m["h2d_bytes_per_slot"] > 0 and m["dl_launch_host_ms"] > 0
     assert m["dl_entry_self_host_ms"] < m["dl_launch_host_ms"] + m["dl_values_host_ms"]
+    # On the CPU the fetch takes no pinned staging and has no wait to time.
+    assert m["dl_pinned_fetch_share"] == 0.0 and "dl_fetch_wait_host_ms" not in m
