@@ -8,8 +8,9 @@ check them.
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc (CUDA_HOME or PATH) and this checkout; imports
-nothing of JAX.  Phases, each printing its own lines; any failure exits
-non-zero:
+nothing of JAX.  Phases, each printing its own lines, keep the numbers the
+project's notes cite them by (20 and 24, timing lines nothing read, are
+gone); any failure exits non-zero:
 
 1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc;
 2. build the LDPC kernel (both modes) from csrc/ and time the build;
@@ -92,12 +93,6 @@ non-zero:
    demodulator, the precoder's pseudo-inverse, demap, layer demap,
    descrambling, rate dematching and the early-stop kernel; every CB and the
    TB pass with the bits sent, and the kernel's launches are counted;
-20. one JSON line for the north-star DL slot with the card's name and power
-   limit: host ms per `process_dl_slot` (median of 12), device kernel time,
-   kernels and stream synchronisations per slot, host ms in the
-   `upper_phy.dl_values` span (torch.profiler), and the batch-8
-   `DlSlotProgram.run_batched` / `run_stacked` device ms per slot (CUDA
-   events);
 21. the scaling layer, `MultiCellUpperPhy(cell, 4, device="cuda")
    .process_ul_slot`: four north-star cells (rnti 0x4601 + c, n_id c + 1)
    in one batched receiver call, every TB decoded, the indications equal to
@@ -123,12 +118,6 @@ non-zero:
    high-SNR slot of its own configuration; 76 BG1 z=384 codeblocks through
    `build_sharded_ldpc_decode_es` and `build_sharded_ldpc_decode`, bit for
    bit against the unsharded kernel;
-24. bench.py's `multi_cell4_dl_aggregate_cell_slot_rate` and
-   `multi_cell4_dl_ul_aggregate_cell_slot_rate` (torch.profiler device time
-   of one `run_stacked` of four DL cells and of the batched 4-cell receiver
-   at 2 iterations), with the back-to-back time and kernels per call and the
-   host ms per `MultiCellUpperPhy` call, beside the card's name and power
-   limit;
 25. the port's app, `apps.gnb_sim.main`, in this process: the `--northstar`
    profile for 8 slots (SSB at slot 0, PRACH at slot 4) with every PUSCH CRC,
    PUCCH F1, the PRACH and every pipelined DL slot passing and 2 early-stop
@@ -1515,51 +1504,6 @@ def phase_dl_loopback() -> dict:
     return launches
 
 
-def phase_dl_timing(phy, req, data, smi: str) -> None:
-    """(20) One JSON line for the north-star DL slot at batch 1: host ms per
-    `process_dl_slot` (median of 12, each ending with grid and samples on
-    the host), then `torch.profiler` over 3 calls (device kernel time,
-    kernels and stream synchronisations per slot, host ms in the
-    `upper_phy.dl_values` span), and the batch-8 `run_batched` (values
-    stacked and uploaded each call) and `run_stacked` (pre-stacked) device ms
-    per slot from CUDA events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from srsran_projectvtlmo_tpu_torch.phy import dl_slot
-
-    call = lambda: phy.process_dl_slot(req, data)
-    host_ms = []
-    for _ in range(12):
-        t0 = time.perf_counter()
-        call()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    calls = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-    kernels, _ = device_events(prof)
-    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    values_ms = sum(e.time_range.elapsed_us() for e in cpu
-                    if e.name == "upper_phy.dl_values") / 1e3 / calls
-    program = dl_slot.get_dl_slot_program(req, phy.cfg, "cuda")
-    values = dl_slot.build_dl_slot_inputs(program, req, data, DL_SLOT)
-    args = [program.value_args(req, values)] * 8
-    batched_ms = cuda_time_ms(lambda: program.run_batched(DL_SLOT, args), reps=5) / 8
-    stacked = program.stack_values(args)
-    stacked_ms = cuda_time_ms(lambda: program.run_stacked(DL_SLOT, stacked), reps=5) / 8
-    print(json.dumps({
-        "profile": "upper_phy_process_dl_slot_northstar_batch1",
-        "host_ms_per_slot": float(np.median(host_ms)), "host_ms_calls": host_ms,
-        "device_kernel_ms_per_slot": (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-                                      / calls if kernels else "not measured"),
-        "kernels_per_slot": len(kernels) / calls if kernels else "not measured",
-        "stream_syncs_per_slot": sum(e.name == "cudaStreamSynchronize" for e in cpu) / calls,
-        "dl_values_host_ms_per_slot": values_ms,
-        "batch8_run_batched_device_ms_per_slot": batched_ms,
-        "batch8_run_stacked_device_ms_per_slot": stacked_ms,
-        "device": torch.cuda.get_device_name(0), "card": smi}))
-
-
 # ------------------------------------------------------- the scaling layer --
 
 #: The multi-cell phases: four cells of the north-star carrier, cell c's UE
@@ -1893,116 +1837,6 @@ def phase_sharded(gen) -> dict:
             "sharded_fixed": launches["ldpc_decode"]}
 
 
-def profile_call(fn, calls: int = 3):
-    """(device kernel ms per call, kernels per call) of fn() from
-    torch.profiler; ("not measured", ...) when it records no device event."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels, _ = device_events(prof)
-    if not kernels:
-        return "not measured", "not measured"
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls, len(kernels) / calls
-
-
-def host_ms(fn, reps: int = 12) -> list[float]:
-    """Host ms of each of `reps` calls of fn(), each ending on the host."""
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def phase_multi_cell_timing(smi: str) -> None:
-    """(24) bench.py's multi-cell metrics (`child_multicell`, bench.py:294-400,
-    ncells 4, 2 LDPC iterations): the aggregate DL rate, cells over the
-    device seconds of one `run_stacked` of four north-star DL slots, and the
-    DL + UL rate, 2 x cells over DL + UL device seconds, UL being the
-    batched dynamic receiver (demodulation included) on random samples with
-    the second half of the cells carrying HARQ history.  Device seconds are
-    torch.profiler's kernel time per call; beside them the back-to-back
-    CUDA-event time per call, the kernels per call, and the host ms per
-    `MultiCellUpperPhy.process_dl_slot` / `process_ul_slot` (median and range
-    of 12)."""
-    import dataclasses
-
-    from srsran_projectvtlmo_tpu_torch.fapi.pdus import UlTtiRequest
-    from srsran_projectvtlmo_tpu_torch.models.pusch_rx import cached_pusch_rx_from_grid
-    from srsran_projectvtlmo_tpu_torch.ops import ofdm
-    from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
-    from srsran_projectvtlmo_tpu_torch.phy import dl_slot
-    from srsran_projectvtlmo_tpu_torch.phy.upper_phy import (
-        ExpertPhyConfig, pusch_rx_key, pusch_sequences)
-
-    reqs, datas = mc_dl_requests()
-    cell = dl_cell()
-    program = dl_slot.get_dl_slot_program(reqs[0], cell, "cuda")
-    stacked = program.stack_values([
-        program.value_args(r, dl_slot.build_dl_slot_inputs(program, r, d, DL_SLOT))
-        for r, d in zip(reqs, datas)])
-    dl_call = lambda: program.run_stacked(DL_SLOT, stacked)
-    dl_dev, dl_kernels = profile_call(dl_call)
-    dl_b2b = cuda_time_ms(dl_call, reps=10)
-    mc_dl = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
-    dl_host = host_ms(lambda: mc_dl.process_dl_slot(reqs, datas, fetch=True))
-
-    ul_cell = fapi_cell()
-    base = northstar_cfg(2, dynamic_params=True)
-    ues = [dataclasses.replace(base, dynamic_params=False, rnti=0x4601 + c, n_id=c + 1,
-                               slot=DL_SLOT) for c in range(MC_CELLS)]
-    rx = cached_pusch_rx_from_grid(pusch_rx_key(ues[0]), "cuda")
-    seqs = [pusch_sequences(u) for u in ues]
-    ref_in = torch.as_tensor(np.stack([s[0] for s in seqs]), device="cuda")
-    signs_in = torch.as_tensor(np.stack([s[2] for s in seqs]), device="cuda")
-    rng = np.random.default_rng(0)
-    nsamp = ofdm.slot_sample_count(NS_DFT, 1, 0)
-    x = torch.as_tensor(rng.normal(size=(MC_CELLS, 4, nsamp, 2)).astype(np.float32) * 0.3,
-                        device="cuda")
-    seg = base.segmentation
-    harq = rng.integers(-20, 20, size=(MC_CELLS, seg.nof_cb, seg.nof_cw_bits_per_cb))
-    harq[:MC_CELLS // 2] = 0
-    harq_in = torch.as_tensor(harq.astype(np.int8), device="cuda")
-
-    def ul_call():
-        grid = ofdm.ofdm_demodulate(x, NS_PRB * 12, NS_DFT, 1, 0)
-        return rx(grid, harq_in, ref_in, signs_in)["tb_crc_ok"]
-
-    ul_dev, ul_kernels = profile_call(ul_call)
-    ul_b2b = cuda_time_ms(ul_call, reps=10)
-    pdus = [northstar_pdu(rnti=0x4601 + c, n_id=c + 1) for c in range(MC_CELLS)]
-    mc_ul = MultiCellUpperPhy(ul_cell, MC_CELLS, expert=ExpertPhyConfig(2), device="cuda")
-    ul_reqs = [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in pdus]
-    ul_samples = x.cpu().numpy()
-    ul_host = host_ms(lambda: mc_ul.process_ul_slot(ul_reqs, ul_samples))
-    spread = lambda ms: {"median": float(np.median(ms)), "min": min(ms), "max": max(ms)}
-    if isinstance(dl_dev, str) or isinstance(ul_dev, str):
-        print(f"multi-cell timing: device time not measured (no device events); {smi}")
-        return
-    dl_rate = MC_CELLS / (dl_dev / 1e3)
-    metric_line(f"multi_cell{MC_CELLS}_dl_aggregate_cell_slot_rate", dl_rate,
-                f"cell-slots/s device-bound ({MC_CELLS} north-star DL cells per run_stacked, "
-                f"torch.profiler kernel time)", vs_baseline=dl_rate / 2000.0,
-                device_ms_per_call=dl_dev, back_to_back_ms_per_call=dl_b2b,
-                kernels_per_call=dl_kernels, host_ms_per_process_dl_slot=spread(dl_host),
-                card=smi)
-    rate = 2 * MC_CELLS / ((dl_dev + ul_dev) / 1e3)
-    metric_line(f"multi_cell{MC_CELLS}_dl_ul_aggregate_cell_slot_rate", rate,
-                f"cell-slots/s device-bound ({MC_CELLS} DL + {MC_CELLS} UL per call pair, "
-                f"2 LDPC iterations, HARQ history in half the UL rows)",
-                vs_baseline=rate / 2000.0, dl_device_ms_per_call=dl_dev,
-                ul_device_ms_per_call=ul_dev, ul_back_to_back_ms_per_call=ul_b2b,
-                ul_kernels_per_call=ul_kernels, host_ms_per_process_ul_slot=spread(ul_host),
-                card=smi)
-
-
 # ------------------------------------------------- the app and the fronthaul --
 
 #: The app phase: slots of the north-star profile (one TDD period of 8: the
@@ -2321,12 +2155,10 @@ def main() -> int:
     dl_phy, dl_req, dl_data = phase_dl_northstar(smi)
     fapi.update(phase_dl_loopback())
     print(json.dumps({"fapi_ldpc_decode_es_launches_per_call": fapi}))
-    phase_dl_timing(dl_phy, dl_req, dl_data, smi)
     scaling = phase_multi_cell_ul(gen)
     phase_multi_cell_dl(smi)
     scaling.update(phase_sharded(gen))
     print(json.dumps({"scaling_launches_per_call": scaling}))
-    phase_multi_cell_timing(smi)
     host_paths = {**phase_app(smi), **phase_fronthaul(dl_phy, dl_req, dl_data, gen, smi)}
     print(json.dumps({"app_and_lower_phy_launches_per_call": host_paths}))
     # The kernels' rows count the main path's launches and those of the

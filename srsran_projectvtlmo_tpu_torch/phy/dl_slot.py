@@ -38,6 +38,7 @@ import dataclasses
 import functools
 import threading
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -215,7 +216,8 @@ def _replace_arrays(tree, it):
     if isinstance(tree, _LEAVES):
         return next(it)
     if isinstance(tree, tuple):
-        return tuple(_replace_arrays(t, it) for t in tree)
+        out = [_replace_arrays(t, it) for t in tree]
+        return DlSlotValues._make(out) if isinstance(tree, DlSlotValues) else tuple(out)
     return tree
 
 
@@ -233,8 +235,24 @@ def _tiled_base(views: list[torch.Tensor]) -> torch.Tensor | None:
     return base if at == base.storage_offset() + base.numel() else None
 
 
-#: Position of `pdsch_k0p` in `stack_values`' output (the batch size first).
-_K0P = 8
+class DlSlotValues(NamedTuple):
+    """`stack_values`' output: the batch size, then the value inputs of
+    `DlSlotProgram` (its docstring) with a batch axis in front of each array,
+    on the device; it unpacks into `_assemble(slot_in_sf, *values)`."""
+    batch: int
+    tb_bits: tuple
+    pdsch_dmrs: tuple
+    pdcch_syms: tuple
+    pdcch_dmrs: tuple
+    ssb_grids: tuple
+    csi_vals: tuple
+    pdsch_scr: tuple
+    pdsch_k0p: tuple
+    pdsch_w: tuple
+    pdcch_w: tuple
+    ssb_w: tuple
+
+
 #: Replay keys per program that keep a CUDA graph, the least recently used
 #: evicted first: 4 redundancy versions x 2 OFDM phases of one batch size.
 GRAPH_KEYS = 8
@@ -287,7 +305,8 @@ class DlSlotProgram:
     unless the caller asks for the CPU).
 
     Value inputs (`value_args`, in this order; `stack_values` puts a batch
-    axis in front of each array and moves them to the device):
+    axis in front of each array, moves them to the device and names them, a
+    `DlSlotValues`):
       tb_bits:     tuple of (TBS_i,) uint8
       pdsch_dmrs:  tuple of (ndmrs, npil, 2) float32 base pilot sequences
       pdcch_syms:  tuple of (n_data, 2) float32 candidate data symbols
@@ -401,16 +420,15 @@ class DlSlotProgram:
         sw = tuple(_port_vector(pdu.precoding, p) for pdu in request.ssb)
         return tuple(tuple(v) for v in values) + (scr, k0p, ws, pw, sw)
 
-    def stack_values(self, value_args_batch) -> tuple:
+    def stack_values(self, value_args_batch) -> DlSlotValues:
         """Stack per-entry `value_args` tuples on a leading batch axis (slots of
         one cell, or one slot of many same-structure cells) and move the
         arrays to the device, one pinned upload per dtype; the buffer starts
-        stay host ints, one per entry.  The batch size leads the result
-        (span `dl_slot.upload`)."""
+        stay host ints, one per entry (span `dl_slot.upload`)."""
         with tracing.span("dl_slot.upload"):
             stacked = _stack(*value_args_batch)
             on_dev = upload_many(_arrays(stacked), self.device)
-            return (len(value_args_batch),) + _replace_arrays(stacked, iter(on_dev))
+            return DlSlotValues(len(value_args_batch), *_replace_arrays(stacked, iter(on_dev)))
 
     @torch.no_grad()
     def run_stacked(self, slot: int, stacked):
@@ -438,7 +456,7 @@ class DlSlotProgram:
         on the device each copy-in waits for the previous copy-out, whatever
         stream it runs on) and every call returns clones of the static
         outputs, taken before the next replay can start."""
-        key = (slot_in_sf, stacked[0], stacked[_K0P])
+        key = (slot_in_sf, stacked.batch, stacked.pdsch_k0p)
         with self._graph_lock:
             state = self._graphs.get(key)
             if state is None:
@@ -471,10 +489,6 @@ class DlSlotProgram:
             return _EAGER
         tracing.count("dl_graph_captures", 1)
         return graph
-
-    def run_batched(self, slot: int, value_args_batch):
-        """`stack_values` + `run_stacked` in one call."""
-        return self.run_stacked(slot, self.stack_values(value_args_batch))
 
 
 @functools.lru_cache(maxsize=512)

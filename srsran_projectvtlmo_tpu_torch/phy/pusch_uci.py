@@ -66,7 +66,7 @@ class PuschUciProcessor:
         self.device = resolve_device(device)
         self._qm = bits_per_symbol(rx.modulation)
         self._cfg_b = _phase_b_cfg(rx)
-        self._phase_a = cached_pusch_rx_from_grid(_phase_a_cfg(rx), self.device)
+        self._rx_a = cached_pusch_rx_from_grid(_phase_a_cfg(rx), self.device)
 
     def csi2_sizes(self, csi1_bits: np.ndarray) -> list[int]:
         """Host decision point: CSI part-2 sizes from decoded part-1 rows."""
@@ -83,9 +83,61 @@ class PuschUciProcessor:
                 for s in scr_bits]
         return torch.as_tensor(np.stack(rows), dtype=torch.int8, device=self.device)
 
+    def phase_a(self, grid_pair: torch.Tensor, ref_dmrs=None, dyn_signs=None,
+                dyn_uci_fix=None) -> dict:
+        """Phase A on an extracted-allocation grid batch: the receiver's
+        device outputs with `decode_sch=False` (codeword LLRs, HARQ-ACK, CSI
+        part 1, channel metrics).  Dynamic mode takes the receiver's call
+        inputs as `process` does."""
+        if self.cfg.rx.dynamic_params:
+            return self._rx_a(grid_pair, None, ref_dmrs, dyn_signs, dyn_uci_fix)
+        return self._rx_a(grid_pair)
+
+    def _phase_b(self, csi2_size: int, llr: torch.Tensor, harq_buffer, scr_bits) -> dict:
+        """Phase B of one part-2 size on codeword LLR rows `llr`; in dynamic
+        mode the CSI part-2 fix signs follow from the rows' scrambling bits."""
+        csi2_fix = None
+        if self.cfg.rx.dynamic_params and csi2_size:
+            csi2_fix = self.csi2_fix_signs(csi2_size, scr_bits)
+        return cached_pusch_phase_b(self._cfg_b, csi2_size, self.device)(llr, harq_buffer,
+                                                                         csi2_fix)
+
+    def phase_b_by_size(self, a: dict, csi1_bits: np.ndarray, harq_buffer=None,
+                        scr_bits=None) -> dict:
+        """Phase B once per distinct part-2 size, on that size's rows of
+        phase A's output `a`, the sizes read from its CSI part 1 `csi1_bits`
+        on the host; `harq_buffer` and `scr_bits` as `process` takes them.
+
+        Returns the results per row, in batch order: `tb_crc_ok` (B,) bool,
+        `csi2_metric` (B,) float32 and `csi2_bits` (a list: each row's bits,
+        None where its part 2 is empty) on the host, `csi2_size` (the rows'
+        sizes), and `tb_bits_cb` and `harq_soft` (B, ...) on the device."""
+        sizes = self.csi2_sizes(csi1_bits)
+        b = len(sizes)
+        ok, csi2_metric = np.zeros(b, bool), np.zeros(b, np.float32)
+        csi2_bits, tb_bits_cb, harq_soft = [None] * b, [None] * b, [None] * b
+        for size in sorted(set(sizes)):
+            idxs = [i for i, s in enumerate(sizes) if s == size]
+            sel = torch.as_tensor(idxs, device=self.device)
+            out = self._phase_b(size, a["codeword_llr"][sel],
+                                None if harq_buffer is None else harq_buffer[sel],
+                                None if scr_bits is None else [scr_bits[i] for i in idxs])
+            ok[idxs] = fetch(out["tb_crc_ok"])
+            if size:
+                bits = fetch(out["csi2_bits"])
+                csi2_metric[idxs] = fetch(out["csi2_metric"])
+            for row, i in enumerate(idxs):
+                tb_bits_cb[i], harq_soft[i] = out["tb_bits_cb"][row], out["harq_soft"][row]
+                if size:
+                    csi2_bits[i] = bits[row]
+        return dict(tb_crc_ok=ok, tb_bits_cb=torch.stack(tb_bits_cb),
+                    harq_soft=torch.stack(harq_soft), csi2_size=sizes, csi2_bits=csi2_bits,
+                    csi2_metric=csi2_metric)
+
     def process(self, grid_pair: torch.Tensor, harq_buffer: torch.Tensor | None = None,
                 ref_dmrs=None, dyn_signs=None, dyn_uci_fix=None, scr_bits=None) -> dict:
-        """Run both phases on an extracted-allocation grid batch.
+        """Run both phases on an extracted-allocation grid batch of one
+        part-2 size.
 
         Static mode (rx.dynamic_params=False): only `grid_pair` (and
         optionally `harq_buffer`).  Dynamic mode also takes the receiver's
@@ -94,26 +146,20 @@ class PuschUciProcessor:
         from which the phase-B CSI part-2 fix signs follow once the size is
         known.  Device tensors and host arrays come back as in the JAX
         processor: the decisions (`csi1_*`, `csi2_size`, `tb_bits`, ACK) on
-        the host.
+        the host.  Rows whose part 1 selects different part-2 sizes raise,
+        as in JAX; `phase_b_by_size` serves them.
         """
         rx = self.cfg.rx
-        if rx.dynamic_params:
-            if ref_dmrs is None or dyn_signs is None or scr_bits is None:
-                raise ValueError("dynamic mode takes (ref_dmrs, dyn_signs, scr_bits)")
-            a = self._phase_a(grid_pair, None, ref_dmrs, dyn_signs, dyn_uci_fix)
-        else:
-            a = self._phase_a(grid_pair)
+        if rx.dynamic_params and (ref_dmrs is None or dyn_signs is None or scr_bits is None):
+            raise ValueError("dynamic mode takes (ref_dmrs, dyn_signs, scr_bits)")
+        a = self.phase_a(grid_pair, ref_dmrs, dyn_signs, dyn_uci_fix)
         csi1_np = fetch(a["csi1_bits"])
         sizes = self.csi2_sizes(csi1_np)
         if len(set(sizes)) != 1:
             raise ValueError("mixed csi2 sizes in one batch not supported yet")
         csi2_size = sizes[0]
 
-        phase_b = cached_pusch_phase_b(self._cfg_b, csi2_size, self.device)
-        csi2_fix = None
-        if rx.dynamic_params and csi2_size:
-            csi2_fix = self.csi2_fix_signs(csi2_size, scr_bits)
-        out = dict(phase_b(a["codeword_llr"], harq_buffer, csi2_fix))
+        out = dict(self._phase_b(csi2_size, a["codeword_llr"], harq_buffer, scr_bits))
         out["csi1_bits"] = csi1_np
         out["csi1_metric"] = fetch(a["csi1_metric"])
         out["csi1_valid"] = out["csi1_metric"] > 0.0

@@ -76,7 +76,7 @@ def precompile_pusch(cfg, nof_slots: int | None = None, *, progress=None, device
 
 def _run_fapi_receiver(c, key, samples: torch.Tensor, dev: torch.device) -> None:
     """Build `cached_pusch_rx_from_grid(key)` and run it once, as
-    `UpperPhy._process_pusch` runs it, on the allocation of `samples`
+    `phy.upper_phy.process_pusch_batch` runs it, on the allocation of `samples`
     (B, P, nsamples, 2); with hopping both hops take the first hop's rows,
     which only the decoded values see."""
     from_grid = cached_pusch_rx_from_grid(key, dev)

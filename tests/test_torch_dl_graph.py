@@ -85,9 +85,10 @@ def counted_run(program, slot: int, stacked):
 @pytest.mark.parametrize("rv", [0, 2])
 @pytest.mark.parametrize("slot", [4, 5])
 def test_graph_replay_equals_eager(card, slot, rv, b):
-    """Both OFDM phases, rv 0 and 2, one slot and a batch of four
-    (`run_batched`): the replay's grid and samples are the eager ones, bit
-    for bit; the key's first call runs eagerly, its second captures."""
+    """Both OFDM phases, rv 0 and 2, one slot and a batch of four (values
+    stacked anew for the last call): the replay's grid and samples are the
+    eager ones, bit for bit; the key's first call runs eagerly, its second
+    captures."""
     program = fresh_program(card)
     stacked = stacked_batch(program, slot, range(10 * b, 11 * b), rv)
     with torch.no_grad():
@@ -98,7 +99,7 @@ def test_graph_replay_equals_eager(card, slot, rv, b):
         assert rec["dl_graph_replays"] == (call > 0)
         assert torch.equal(grid, want[0]) and torch.equal(samples, want[1])
     args = [program.value_args(*_values(program, slot, seed, rv)) for seed in range(20, 20 + b)]
-    grid, samples = program.run_batched(slot, args)
+    grid, samples = program.run_stacked(slot, program.stack_values(args))
     with torch.no_grad():
         want = program._assemble(slot % 2, *program.stack_values(args))
     assert torch.equal(grid, want[0]) and torch.equal(samples, want[1])

@@ -4,9 +4,10 @@
 cases of tests/test_dl_slot.py and tests/test_bf16_grid.py at <= 52 PRB:
 4x2 precoding, interleaved PDCCH, CSI-RS rows and density 0.5, CSI-RS inside
 the PDSCH and a CORESET reservation with PDCCH, rv 0-3, UE churn on one
-plan, the bf16 grid, and `DlSlotProgram.run_batched` against per-slot calls;
-on a CPU device `run_stacked` is the eager `_assemble` and keeps no CUDA
-graph (the card's side: tests/test_torch_dl_graph.py).
+plan, the bf16 grid, and a batch through `upper_phy.dl_slot_on_device`
+against per-slot calls; on a CPU device `run_stacked` is the eager
+`_assemble` and keeps no CUDA graph (the card's side:
+tests/test_torch_dl_graph.py).
 
 Tolerances and why:
   * float32 grids: 1e-5 absolute (precoding products summed in another
@@ -31,7 +32,8 @@ from srsran_projectvtlmo_tpu_torch.fapi.pdus import (
     CsiRsPdu, DlTtiRequest, PdcchPdu, PdschPdu, SsbPdu, TxDataRequest)
 from srsran_projectvtlmo_tpu_torch.phy import dl_slot
 from srsran_projectvtlmo_tpu_torch.phy import pdcch as pdcch_mod
-from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig, FapiValidationError, UpperPhy
+from srsran_projectvtlmo_tpu_torch.phy.upper_phy import (
+    CellConfig, FapiValidationError, UpperPhy, dl_slot_on_device)
 from srsran_projectvtlmo_tpu_torch.ran.modulation import Modulation
 from srsran_projectvtlmo_tpu_torch.ran.re_pattern import coreset_pattern, csi_rs_patterns
 from srsran_projectvtlmo_tpu_torch.utils import tables, tracing
@@ -283,9 +285,9 @@ def test_bf16_grid_within_bound():
     assert np.sqrt(np.mean((s16 - js32) ** 2) / np.mean(js32 ** 2)) < 5e-3
 
 
-def test_run_batched_matches_per_slot_calls():
+def test_batched_dl_slot_matches_per_slot_calls():
     """Three slots of one structure (other UEs, rv and DCI) in one batched
-    call give the per-slot grids and samples."""
+    `dl_slot_on_device` call give the per-slot grids and samples."""
     cell = dataclasses.replace(CELL4, nof_rb=24, dft_size=512)
     reqs = []
     for i, (rnti, rv) in enumerate([(0x10, 0), (0x2222, 1), (0x31, 3)]):
@@ -300,12 +302,10 @@ def test_run_batched_matches_per_slot_calls():
             ssb=(SsbPdu(phys_cell_id=1, ssb_block_index=0, sfn=i, half_radio_frame=False),),
             csi_rs=(CsiRsPdu(nof_rb=24, symbol=13, subcarrier_offset=3, scrambling_id=i),)))
     program = dl_slot.get_dl_slot_program(reqs[0], cell, "cpu")
-    args = []
-    for i, req in enumerate(reqs):
+    for req in reqs:
         assert dl_slot.get_dl_slot_program(req, cell, "cpu") is program
-        values = dl_slot.build_dl_slot_inputs(program, req, tx_data(req, cell, i), req.slot)
-        args.append(program.value_args(req, values))
-    grid, samples = program.run_batched(4, args)
+    grid, samples = dl_slot_on_device(program, 4, reqs,
+                                      [tx_data(req, cell, i) for i, req in enumerate(reqs)])
     assert grid.shape == (3, 4, 14, 24 * 12, 2) and grid.dtype == torch.float32
     phy = UpperPhy(cell, device="cpu")
     for i, req in enumerate(reqs):

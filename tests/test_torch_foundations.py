@@ -100,6 +100,26 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert not roots & set(_FOREIGN), roots & set(_FOREIGN)
 
 
+def test_parallel_imports_no_private_name_of_phy():
+    """`parallel/` reaches `phy/` only through its public names: no module
+    there imports a `_`-prefixed name from the port's `phy` package."""
+    pkg = os.path.join(REPO, "srsran_projectvtlmo_tpu_torch", "parallel")
+    bad = []
+    for f in sorted(os.listdir(pkg)):
+        if not f.endswith(".py"):
+            continue
+        path = os.path.join(pkg, f)
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if not isinstance(node, ast.ImportFrom):
+                continue
+            parts = (node.module or "").split(".")
+            if node.level:  # relative to srsran_projectvtlmo_tpu_torch.parallel
+                parts = ["srsran_projectvtlmo_tpu_torch", "parallel"][:3 - node.level] + parts
+            if parts[:2] == ["srsran_projectvtlmo_tpu_torch", "phy"]:
+                bad += [(f, a.name) for a in node.names if a.name.startswith("_")]
+    assert not bad, bad
+
+
 _ALL = np.arange(-128, 128, dtype=np.int8)
 _A, _B = np.meshgrid(_ALL, _ALL, indexing="ij")
 

@@ -264,20 +264,21 @@ def test_ul_matches_jax_and_per_cell_dispatch(inputs, world1, jax_side, name):
 
 def test_distinct_rntis_decode_in_one_receiver_call(inputs, world1, monkeypatch):
     """Cells with distinct rnti and n_id: every TB decodes, and the batched
-    path makes one receiver call on all their rows."""
-    import srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy as mcp
+    path makes one receiver call on all their rows (the shared PUSCH
+    dispatch looks the receiver up in `phy.upper_phy`)."""
+    import srsran_projectvtlmo_tpu_torch.phy.upper_phy as up
 
     reqs, samples, tbs = inputs[0]["distinct_rnti"][1][0]
     for c, tb in enumerate(tbs):
         assert _decoded(world1["distinct_rnti"][0][c], tb), c
         assert _of(world1["distinct_rnti"][0][c], CrcIndication)[0].rnti == reqs[c].pusch[0].rnti
-    rows, cached = [], mcp.cached_pusch_rx_from_grid
+    rows, cached = [], up.cached_pusch_rx_from_grid
 
     def counting(cfg, device):
         rx = cached(cfg, device)
         return lambda grid, *args: rows.append(grid.shape[0]) or rx(grid, *args)
 
-    monkeypatch.setattr(mcp, "cached_pusch_rx_from_grid", counting)
+    monkeypatch.setattr(up, "cached_pusch_rx_from_grid", counting)
     MultiCellUpperPhy(UL_CELL, len(reqs), device="cpu").process_ul_slot(reqs, samples)
     assert rows == [len(reqs)]
 

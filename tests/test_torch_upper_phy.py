@@ -337,10 +337,10 @@ def test_invalid_request_raises():
     assert len(terr.value.report.errors) == 2
 
 
-def test_downlink_is_not_ported_yet():
-    """The downlink half of the entry point (its name kept from before the DL
-    slot was ported; tests/test_torch_dl_slot.py holds the slots): a DL
-    request that fails FAPI validation raises with the JAX UpperPhy's report."""
+def test_invalid_dl_request_raises_as_jax():
+    """The downlink half of the entry point (tests/test_torch_dl_slot.py holds
+    the slots): a DL request that fails FAPI validation raises with the JAX
+    UpperPhy's report."""
     from srsran_projectvtlmo_tpu_torch.fapi.pdus import DlTtiRequest, PdschPdu, TxDataRequest
 
     pdu = PdschPdu(rnti=0x10, rb_start=20, rb_size=8, modulation=QAM16, target_code_rate=0.5,
