@@ -333,12 +333,13 @@ class DlSlotProgram:
                           for cfg in self.pdsch_cfgs]
 
         # PDCCH: each candidate's data REs, then its DM-RS REs, in the order
-        # of the values `build_dl_slot_inputs` makes.
-        self.pdcch_prbs: list[list[int]] = []
+        # of the values `build_dl_slot_inputs` makes; and where its DM-RS
+        # pilots sit in the per-symbol Gold sequences.
+        self.pdcch_dmrs_index: list[tuple[int, np.ndarray]] = []
         self.pdcch_re = []
         for pdu in key.pdcch:
             prbs, data_idx, dmrs_idx = _pdcch_plan(pdu, cell)
-            self.pdcch_prbs.append(prbs)
+            self.pdcch_dmrs_index.append(pdcch_mod.pdcch_dmrs_index(pdu.duration, prbs))
             self.pdcch_re.append(torch.as_tensor(
                 np.concatenate([data_idx, dmrs_idx]).astype(np.int64), device=dev))
 
@@ -543,22 +544,20 @@ def build_dl_slot_inputs(program: DlSlotProgram, request: DlTtiRequest, tx_data,
         payload = getattr(pdu, "payload", None)
         if payload is None:
             payload = np.zeros(pdu.nof_dci_bits, np.uint8)
-        syms = pdcch_mod.pdcch_modulate(
+        pdcch_syms.append(pdcch_mod.pdcch_symbol_pairs(
             pdcch_mod.PdcchCandidateConfig(
                 nof_dci_bits=pdu.nof_dci_bits, aggregation_level=pdu.aggregation_level,
                 rnti=pdu.rnti, n_id=pdu.n_id, n_rnti=pdu.n_rnti),
-            np.asarray(payload, np.uint8))
-        pil = pdcch_mod.pdcch_dmrs_values(slot, pdu.start_symbol, pdu.duration,
-                                          program.pdcch_prbs[i], pdu.n_id)
-        pdcch_syms.append(np_to_pair(syms))
-        pdcch_dmrs.append(np_to_pair(pil))
+            np.asarray(payload, np.uint8)))
+        pdcch_dmrs.append(pdcch_mod.pdcch_dmrs_pairs(slot, pdu.start_symbol, pdu.duration,
+                                                     *program.pdcch_dmrs_index[i], pdu.n_id))
 
     ssb_grids = []
     for ssb in request.ssb:
         msg = pbch_mod.PbchMessage(
             sfn=ssb.sfn, ssb_idx=ssb.ssb_block_index, half_radio_frame=ssb.half_radio_frame,
             n_id=ssb.phys_cell_id, l_max=ssb.l_max, mib_payload=ssb.mib_payload)
-        ssb_grids.append(np_to_pair(pbch_mod.assemble_ssb(msg)))
+        ssb_grids.append(pbch_mod.ssb_block_pairs(msg))
 
     csi_vals = []
     for pdu in request.csi_rs:

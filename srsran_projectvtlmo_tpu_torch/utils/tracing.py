@@ -18,7 +18,9 @@ host and device; `dl_graph_captures` and `dl_graph_replays` (`phy.dl_slot`),
 the CUDA graphs of the DL slot captured and replayed (a DL slot run on a
 card adds 0 replays when it runs eagerly); `dl_pinned_fetches`
 (`utils.tables.fetch_dl_outputs`), DL fetches through pinned staging (0 on
-the CPU).
+the CPU); `dl_encodes` and `dl_table_encodes` (`phy.pdcch`, `phy.pbch`), the
+PDCCH and PBCH codewords encoded, and of them those looked up in a table
+that was already built (an encode that first builds its table adds 0).
 """
 
 from __future__ import annotations

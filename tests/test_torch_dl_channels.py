@@ -35,7 +35,7 @@ from srsran_projectvtlmo_tpu.ran.modulation import Modulation, bits_per_symbol
 
 from srsran_projectvtlmo_tpu_torch.fapi.pdus import DlTtiRequest, PdschPdu
 from srsran_projectvtlmo_tpu_torch.models import pdsch_tx, sch_tx
-from srsran_projectvtlmo_tpu_torch.ops import csi_rs
+from srsran_projectvtlmo_tpu_torch.ops import csi_rs, gf2
 from srsran_projectvtlmo_tpu_torch.ops.polar import interleave
 from srsran_projectvtlmo_tpu_torch.phy import dl_slot, pbch, pdcch
 from srsran_projectvtlmo_tpu_torch.phy.upper_phy import CellConfig
@@ -140,6 +140,35 @@ def test_pbch_polar_roundtrip():
                                                                           msg))
 
 
+@pytest.mark.parametrize("hrf", [False, True])
+@pytest.mark.parametrize("l_max", [4, 8, 64])
+def test_pbch_table_encode_equals_chain_and_jax(l_max, hrf):
+    """The PBCH encode table against the port's chain and JAX's encoder, the
+    symbols and the assembled block against JAX's: every SFN offset v (the
+    SFN's 3rd and 2nd LSBs) at several PCIs, random MIB bits, SSB indices
+    and k_SSB."""
+    rng = np.random.default_rng(7 * l_max + hrf)
+    for n_id in (0, 1, 503, 1007):
+        for v in range(4):
+            kw = dict(sfn=int(rng.integers(0, 128)) * 8 + 2 * v + int(rng.integers(0, 2)),
+                      ssb_idx=int(rng.integers(0, l_max)), half_radio_frame=hrf, n_id=n_id,
+                      l_max=l_max, mib_payload=tuple(int(b) for b in rng.integers(0, 2, 24)),
+                      k_ssb=int(rng.integers(0, 24)))
+            msg, jmsg = pbch.PbchMessage(**kw), jax_pbch.PbchMessage(**kw)
+            a_prime = pbch.pbch_scramble_payload(pbch.pbch_payload(msg), msg)
+            assert 2 * a_prime[pbch.G[7]] + a_prime[pbch.G[8]] == v
+            np.testing.assert_array_equal(
+                a_prime, jax_pbch.pbch_scramble_payload(jax_pbch.pbch_payload(jmsg), jmsg))
+            got = pbch.pbch_encode(msg)
+            assert (got.dtype, got.shape) == (np.uint8, (pbch.E,))
+            np.testing.assert_array_equal(got, pbch._encode_chain(a_prime))
+            np.testing.assert_array_equal(got, jax_pbch.pbch_encode(jmsg))
+            block, jblock = pbch.assemble_ssb(msg), jax_pbch.assemble_ssb(jmsg)
+            assert (block.dtype, block.shape) == (jblock.dtype, jblock.shape)
+            np.testing.assert_array_equal(block, jblock)
+            np.testing.assert_array_equal(pbch.pbch_modulate(msg), jax_pbch.pbch_modulate(jmsg))
+
+
 # -------------------------------------------------------------------- PDCCH --
 
 _PDCCH = _vectors("pdcch")
@@ -179,6 +208,60 @@ def test_pdcch_modulate_and_blind_decode_as_jax(ndci, al):
     _, bad = pdcch.pdcch_blind_decode(torch.as_tensor(pair), torch.as_tensor(nv),
                                       _candidate(pdcch, ndci, al, rnti=0x1111))
     assert not bool(bad[0])
+
+
+@pytest.mark.parametrize("al", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("ndci", [12, 40, 77])
+def test_pdcch_table_encode_equals_chain_and_jax(ndci, al):
+    """The PDCCH encode table of (DCI size, E) against the port's chain and
+    JAX's encoder, and the scrambled symbols against JAX's, on random DCIs
+    and RNTIs, 0 and 65535 among them."""
+    e = al * pdcch.RE_PER_CCE * 2
+    rng = np.random.default_rng(100 * ndci + al)
+    for rnti in [0, 65535] + [int(r) for r in rng.integers(1, 65535, 4)]:
+        dci = rng.integers(0, 2, ndci).astype(np.uint8)
+        got = pdcch.pdcch_encode(dci, rnti, e)
+        assert (got.dtype, got.shape) == (np.uint8, (e,))
+        np.testing.assert_array_equal(
+            got, pdcch._encode_chain(np.concatenate([dci, pdcch._rnti_bits(rnti)]), ndci, e))
+        np.testing.assert_array_equal(got, np.asarray(jax_pdcch.pdcch_encode(dci, rnti, e)))
+        cfg, jcfg = _candidate(pdcch, ndci, al, rnti), _candidate(jax_pdcch, ndci, al, rnti)
+        syms, jsyms = pdcch.pdcch_modulate(cfg, dci), jax_pdcch.pdcch_modulate(jcfg, dci)
+        assert (syms.dtype, syms.shape) == (jsyms.dtype, jsyms.shape)
+        np.testing.assert_array_equal(syms, jsyms)
+
+
+def test_encodes_build_one_table_per_shape(monkeypatch):
+    """100 slots' worth of random DCIs, RNTIs, scrambling ids, SFNs and MIBs:
+    one PDCCH table for (40 DCI bits, E = 432) and one PBCH table, each built
+    from one run of the chain per input bit and one for the offset, and one
+    SSB cell part per half-frame bit, so no per-slot value enters a key."""
+    runs = {"pdcch": 0, "pbch": 0}
+
+    def counted(name, chain):
+        def run(*args):
+            runs[name] += 1
+            return chain(*args)
+        return run
+
+    monkeypatch.setattr(pdcch, "TABLES", gf2.TableCache(pdcch._build_table))
+    monkeypatch.setattr(pbch, "TABLES", gf2.TableCache(
+        lambda: gf2.build_table(pbch._encode_chain, pbch.A)))
+    monkeypatch.setattr(pdcch, "_encode_chain", counted("pdcch", pdcch._encode_chain))
+    monkeypatch.setattr(pbch, "_encode_chain", counted("pbch", pbch._encode_chain))
+    pbch._ssb_cell_part.cache_clear()
+    rng = np.random.default_rng(11)
+    for _ in range(100):
+        rnti, n_id, n_rnti = (int(x) for x in rng.integers(0, 65536, 3))
+        cfg = pdcch.PdcchCandidateConfig(nof_dci_bits=40, aggregation_level=4, rnti=rnti,
+                                         n_id=n_id, n_rnti=n_rnti)
+        pdcch.pdcch_symbol_pairs(cfg, rng.integers(0, 2, 40).astype(np.uint8))
+        pbch.ssb_block_pairs(pbch.PbchMessage(
+            sfn=int(rng.integers(0, 1024)), ssb_idx=0, half_radio_frame=bool(rng.integers(0, 2)),
+            n_id=1, mib_payload=tuple(int(b) for b in rng.integers(0, 2, 24))))
+    assert pdcch.TABLES.keys() == [(40, 432)] and pbch.TABLES.keys() == [()]
+    assert runs == {"pdcch": 40 + pdcch.RNTI_LEN + 1, "pbch": pbch.A + 1}
+    assert pbch._ssb_cell_part.cache_info().currsize == 2
 
 
 def test_pdcch_dmrs_and_mapping_equal():

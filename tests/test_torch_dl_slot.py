@@ -315,6 +315,50 @@ def test_batched_dl_slot_matches_per_slot_calls():
         run_both(cell, req, seed=i)
 
 
+def _same_array(got: np.ndarray, want) -> None:
+    want = np.asarray(want)
+    assert (got.dtype, got.shape) == (want.dtype, want.shape)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_host_values_equal_jax_at_the_north_star_width():
+    """`build_dl_slot_inputs` + `value_args` on the benchmark's DL pool (273
+    PRB, 4 ports) equal the JAX package's values array for array: value,
+    dtype and shape.  JAX hands its program the PDCCH symbols and DM-RS
+    concatenated in its block order, so those are compared so arranged."""
+    from srsran_projectvtlmo_tpu.phy import dl_slot as jax_dl_slot
+    from srsran_projectvtlmo_tpu_torch.models.sch_tx import sch_k0_prime
+    from tests.test_torch_tracing import dl_cell
+
+    config, pool = dl_cell(seed=4800000101)
+    cell = UpperPhy(CellConfig(**{k: v for k, v in config["cell"].items()
+                                  if k in CellConfig.__dataclass_fields__}), device="cpu").cfg
+    assert cell.nof_rb == 273 and cell.nof_tx_ports == 4
+    for entry in pool:
+        req, data = entry.args
+        program = dl_slot.get_dl_slot_program(req, cell, "cpu")
+        (tb, pdsch_dmrs, pdcch_syms, pdcch_dmrs, ssb, csi, scr, k0p, ws, pw, sw) = \
+            program.value_args(req, dl_slot.build_dl_slot_inputs(program, req, data, req.slot))
+        jreq = to_jax_request(req)
+        jprog = jax_dl_slot.get_dl_slot_program(jreq, to_jax(cell))
+        (jtb, jdmrs, jpdcch, jpdcch_dmrs, jssb, jcsi, jscr, jk0p, jws, jpw, jsw) = \
+            jprog._value_args(req.slot, *jax_dl_slot.build_dl_slot_inputs(
+                jprog, jreq, to_jax(data), req.slot), pdsch_pdus=tuple(jreq.pdsch),
+                pdcch_pdus=tuple(jreq.pdcch), ssb_pdus=tuple(jreq.ssb))
+        assert len(pdcch_syms) == len(jpdcch) == 1 and len(ssb) == 1 and not jpdcch_dmrs
+        for got, want in zip(tb + pdsch_dmrs + ssb + csi + ws + pw + sw,
+                             jtb + jdmrs + jssb + jcsi + jws + jpw + jsw, strict=True):
+            _same_array(got, want)
+        for i, order in enumerate(layout["order"] for layout in jprog.pdcch_layout):
+            _same_array(np.concatenate([pdcch_syms[i], pdcch_dmrs[i]])[order], jpdcch[i])
+        for planes, jplanes in zip(scr, jscr, strict=True):
+            for got, want in zip(planes, jplanes, strict=True):
+                _same_array(got, want)
+        # JAX takes the rv one-hot, the port that rv's circular-buffer start.
+        assert k0p == tuple(sch_k0_prime(cfg, int(np.argmax(oh)))
+                            for cfg, oh in zip(program.pdsch_cfgs, jk0p, strict=True))
+
+
 def test_fetch_false_single_port_and_validation():
     """fetch=False hands back the device tensors; a one-port cell's grid and
     samples are squeezed; an invalid request fails as in JAX."""

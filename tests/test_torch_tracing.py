@@ -184,21 +184,26 @@ def test_records_stay_whole_under_thread_switches():
 # ------------------------------------------------------------ the entries --
 
 def test_dl_entry_counts_the_bytes_it_moves_at_the_north_star_width():
-    """One DL call on a 273-PRB 4-port cell: `h2d_bytes` is the stacked value
-    arrays' nbytes, `d2h_bytes` the fetched bf16 grid pair and float32
-    samples' (1,142,752 and 2,699,904 bytes); on the CPU no fetch is pinned."""
+    """One warm DL call on a 273-PRB 4-port cell: `h2d_bytes` is the stacked
+    value arrays' nbytes, `d2h_bytes` the fetched bf16 grid pair and float32
+    samples' (1,142,752 and 2,699,904 bytes); on the CPU no fetch is pinned;
+    one encode per PDCCH and SSB PDU, each a lookup in a built table."""
     config, pool = dl_cell()
     phy = harness.make_phy(config, "cpu")
     req, data = pool[0].args
+    phy.process_dl_slot(req, data)
     grid, samples = phy.process_dl_slot(req, data, fetch=True)
     rec = tracing.last_calls(1)[0]
     program = dl_slot.get_dl_slot_program(req, phy.cfg, "cpu")
     args = program.value_args(req, dl_slot.build_dl_slot_inputs(program, req, data, req.slot))
     stacked = dl_slot._arrays(dl_slot._stack(args))
     grid_pair_bytes = grid.size * 2 * torch.bfloat16.itemsize
+    encodes = len(req.pdcch) + len(req.ssb)
+    assert encodes == 2
     assert rec == {"entry": "upper_phy.process_dl_slot",
                    "h2d_bytes": sum(a.nbytes for a in stacked),
-                   "d2h_bytes": grid_pair_bytes + samples.nbytes, "dl_pinned_fetches": 0}
+                   "d2h_bytes": grid_pair_bytes + samples.nbytes, "dl_pinned_fetches": 0,
+                   "dl_encodes": encodes, "dl_table_encodes": encodes}
     assert grid.shape == (4, 14, 3276) and samples.dtype == np.float32
     assert (rec["h2d_bytes"], rec["d2h_bytes"]) == (1_142_752, 2_699_904)
 
@@ -305,7 +310,8 @@ def test_reader_on_a_synthetic_trace(name, want):
     assert reader.read(ctx) == pytest.approx(want, rel=1e-12)
 
 
-@pytest.mark.parametrize("name", NEW_READERS + ("dl_fetch_wait_host_ms", "dl_pinned_fetch_share"))
+@pytest.mark.parametrize("name", NEW_READERS + ("dl_fetch_wait_host_ms", "dl_pinned_fetch_share",
+                                                "dl_table_encode_share"))
 def test_reader_reads_nothing_from_a_program_without_the_labels(name, monkeypatch):
     """A program without the spans or `last_calls` (the benchmark also runs
     older revisions): the reader returns None and does not raise."""
@@ -331,3 +337,5 @@ def test_traced_harness_run_reports_every_reader():
     assert m["dl_entry_self_host_ms"] < m["dl_launch_host_ms"] + m["dl_values_host_ms"]
     # On the CPU the fetch takes no pinned staging and has no wait to time.
     assert m["dl_pinned_fetch_share"] == 0.0 and "dl_fetch_wait_host_ms" not in m
+    # Warm-up built the encode tables: every traced encode is a lookup.
+    assert m["dl_table_encode_share"] == 1.0
