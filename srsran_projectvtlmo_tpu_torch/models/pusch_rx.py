@@ -33,7 +33,7 @@ from ..ops import ofdm as ofdm_mod
 from ..ops import prg as prg_mod
 from ..ops import short_block
 from ..ops import uci as uci_mod
-from ..ops.channel_estimate import estimate_channel_hop
+from ..ops.channel_estimate import estimate_channel_hop, noise_residual_share
 from ..ops.crc import crc_check_device, crc_check_device_cbs
 from ..ops.demodulation import soft_demap
 from ..ops.dmrs import (
@@ -79,6 +79,12 @@ class PuschRxConfig(SchChainConfig):
     dmrs_config_type: int = 1
     hop_symbol: int | None = None
     second_hop_prb: int | None = None
+    #: Scale the DM-RS noise estimate to the per-RE noise of the data: undo
+    #: the smoothing residual's shrink and, with CDM, the pair despreading's
+    #: halving (`ops.channel_estimate.noise_residual_share`).  False keeps
+    #: the JAX package's estimate, 5.4 dB low on 2-layer PUSCH, whose LLRs
+    #: then clip in int8 and lose TBs near the decoding threshold.
+    unbiased_noise: bool = True
 
     @property
     def scs_hz(self) -> float:
@@ -281,6 +287,10 @@ def _static_fix(plan, name: str, cfg: PuschRxConfig, scr_bits, dev):
     return torch.as_tensor(fix.astype(np.int32), device=dev)
 
 
+def _scaled(noise_var: torch.Tensor, scale: float) -> torch.Tensor:
+    return noise_var if scale == 1.0 else noise_var * scale
+
+
 def build_pusch_phase_b(cfg: PuschRxConfig, nof_csi_part2_bits: int, device="cuda"):
     """Phase B of the CSI part-1 -> part-2 protocol, one program per part-2
     size bucket: codeword LLRs from phase A (`decode_sch=False`) -> CSI part 2
@@ -394,6 +404,14 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
         return [(0, n0), (n0, len(syms))] if hopping else [(0, len(syms))]
 
     dmrs_hops, data_hops = hop_ranges(cfg.dmrs_symbols), hop_ranges(cfg.data_symbols)
+    # Per hop (one with CDM): the factor from the estimate's noise variance
+    # to the per-RE noise (1.0: the JAX package's estimate).
+    if not cfg.unbiased_noise:
+        noise_scale = [1.0] * len(dmrs_hops)
+    elif cdm:
+        noise_scale = [2.0 / noise_residual_share(cfg.nof_rb, cdm_stride, ndmrs)]
+    else:
+        noise_scale = [1.0 / noise_residual_share(cfg.nof_rb, 2, d1 - d0) for d0, d1 in dmrs_hops]
     ones_pair = torch.zeros((ndmrs, npil // 2, 2), dtype=torch.float32, device=dev)
     ones_pair[..., 0] = 1.0
     weights_fn = {"mmse": mmse_weights, "zf": zf_weights}[cfg.equalizer]
@@ -409,7 +427,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
             # per-hop TA and CFO are then averaged
             # (reference: port_channel_estimator_average_impl.cpp:238-330).
             ws, nvs, tas, cfos = [], [], [], []
-            for d0, d1 in dmrs_hops:
+            for (d0, d1), scale in zip(dmrs_hops, noise_scale):
                 one_hop = (d0, d1) == (0, ndmrs)
                 ref_k = (ref_dmrs[:, None, d0:d1] if ref_dmrs is not None
                          else ref_pair if one_hop else ref_pair[d0:d1])
@@ -417,7 +435,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
                                            ref_k, cfg.nof_rb, 2, cfg.scs_hz,
                                            dmrs_epochs[d0:d1])  # leading (B, P)
                 h_sub = est["ce_pair"].permute(0, 2, 1, 3)[..., None, :]  # (B, S, P, 1, 2)
-                w_k, nv_k = weights_fn(h_sub, est["noise_var"])
+                w_k, nv_k = weights_fn(h_sub, _scaled(est["noise_var"], scale))
                 ws.append(w_k)
                 nvs.append(nv_k)
                 tas.append(est["time_alignment_s"])
@@ -443,7 +461,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
         est = estimate_channel_hop(from_cplx(torch.stack(layer_lse)), ones_pair,
                                    cfg.nof_rb, cdm_stride, cfg.scs_hz, dmrs_epochs)  # (L, B, P)
         h_sub = est["ce_pair"].permute(1, 3, 2, 0, 4)  # (B, S, P, L, 2)
-        w, nv = weights_fn(h_sub, est["noise_var"].mean(dim=0))
+        w, nv = weights_fn(h_sub, _scaled(est["noise_var"].mean(dim=0), noise_scale[0]))
         cfo = (est["cfo_hz"].mean(dim=(0, 2))
                if cfg.compensate_cfo and ndmrs >= 2 else None)
         return [w], [nv], est["time_alignment_s"][0].mean(dim=-1), cfo

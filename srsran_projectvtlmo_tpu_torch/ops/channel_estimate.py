@@ -60,6 +60,18 @@ def _interp_weight(npil: int, stride: int, nsubc: int) -> np.ndarray:
     return interp_plan(npil, stride, nsubc)[1]
 
 
+@functools.lru_cache(maxsize=None)
+def noise_residual_share(nof_rb: int, stride: int, nof_symbols: int) -> float:
+    """The share of the per-pilot noise variance that `estimate_channel_hop`'s
+    `noise_var` keeps: the residual of each DM-RS symbol's LSE against the
+    raised-cosine smoothing of their mean, E|n_s - F(mean n)|^2 / sigma^2 =
+    1 - 2 f_0 / N + sum f_k^2 / N over N symbols and the taps f (centre f_0),
+    away from the band edges.  Dividing by it makes the estimate unbiased;
+    the JAX package does not (0.57 for one DM-RS symbol at stride 4: -2.4 dB)."""
+    taps = rc_filter(nof_rb, stride).astype(np.float64)
+    return float(1.0 - (2.0 * taps[len(taps) // 2] - (taps ** 2).sum()) / nof_symbols)
+
+
 def _float32(values: tuple[float, ...]) -> np.ndarray:
     return np.asarray(values, np.float32)
 

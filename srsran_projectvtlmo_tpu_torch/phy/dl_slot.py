@@ -33,10 +33,8 @@ lib/phy/upper/channel_processors/pdsch_processor_concurrent_impl.cpp:31-58.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import functools
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -53,7 +51,7 @@ from ..ops.precoding import identity_precoder, layer_map
 from ..ran.pdcch_mapping import (
     cce_to_reg_interleaved, cce_to_reg_non_interleaved, pdcch_coreset_prbs, pdcch_re_indices)
 from ..ran.re_pattern import reserved_mask_window
-from ..utils import log, tracing
+from ..utils import cuda_graphs, tracing
 from ..utils.cplx import from_cplx, np_to_pair, to_cplx
 from ..utils.tables import resolve_device, upload_many
 from . import pbch as pbch_mod
@@ -256,9 +254,6 @@ class DlSlotValues(NamedTuple):
 #: Replay keys per program that keep a CUDA graph, the least recently used
 #: evicted first: 4 redundancy versions x 2 OFDM phases of one batch size.
 GRAPH_KEYS = 8
-#: The state of a replay key seen once (its next call captures) and of one
-#: whose capture failed (it runs eagerly).
-_WARM, _EAGER = "warm", "eager"
 
 
 class _SlotGraph:
@@ -269,7 +264,8 @@ class _SlotGraph:
     copies a call's uploads into them (one `copy_` per dtype), replays, and
     returns clones of the static outputs, which the next replay overwrites."""
 
-    def __init__(self, program: "DlSlotProgram", slot_in_sf: int, stacked, pool):
+    def __init__(self, fn, args, pool):
+        slot_in_sf, stacked = args
         arrays = _arrays(stacked)
         groups: dict[torch.dtype, list[int]] = {}
         for i, a in enumerate(arrays):
@@ -278,17 +274,16 @@ class _SlotGraph:
         self.flat, self.views = [], [None] * len(arrays)
         for idx in self.groups:
             flat = torch.empty(sum(arrays[i].numel() for i in idx), dtype=arrays[idx[0]].dtype,
-                               device=program.device)
+                               device=arrays[idx[0]].device)
             for i, part in zip(idx, flat.split([arrays[i].numel() for i in idx])):
                 self.views[i] = part.view(arrays[i].shape)
             self.flat.append(flat)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-            self.out = program._assemble(slot_in_sf,
-                                         *_replace_arrays(stacked, iter(self.views)))
+            self.out = fn(slot_in_sf, _replace_arrays(stacked, iter(self.views)))
 
-    def run(self, stacked) -> tuple[torch.Tensor, torch.Tensor]:
-        arrays = _arrays(stacked)
+    def run(self, args) -> tuple[torch.Tensor, torch.Tensor]:
+        arrays = _arrays(args[1])
         for flat, idx in zip(self.flat, self.groups):
             src = _tiled_base([arrays[i] for i in idx])
             if src is not None and src.numel() == flat.numel():
@@ -352,15 +347,10 @@ class DlSlotProgram:
                    for port, (symbols, subc, _) in enumerate(pat) for sym in symbols]
             self.csi_re.append(torch.as_tensor(np.concatenate(idx).astype(np.int64), device=dev))
 
-        # On a card: the replay keys' states, least recently used first (a
-        # `_SlotGraph`, `_WARM` or `_EAGER`), the memory pool their graphs
-        # share, and what serialises their replays (`_replay`).
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
-        self._graph_lock = threading.Lock()
-        self._graph_pool = self._graph_done = None
+        # On a card: the replay keys and their `_SlotGraph`s (`_replay`).
+        self._replays = None
         if dev.type == "cuda":
-            self._graph_pool = torch.cuda.graph_pool_handle()
-            self._graph_done = torch.cuda.Event()
+            self._replays = cuda_graphs.GraphReplays(dev, GRAPH_KEYS, "dl_graph", "DL slot")
 
     def _dmrs_rows(self, i: int, pil: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Base pilots (B, ndmrs, npil) and weights (B, P, L) complex -> the
@@ -444,52 +434,25 @@ class DlSlotProgram:
             return self._replay(slot_in_sf, stacked)
 
     def _replay(self, slot_in_sf: int, stacked):
-        """`_assemble` of a replay key: eager on the key's first call, captured
-        as a `_SlotGraph` on its second, replayed after that.  The key is what
-        the eager program branches on, on the host: the OFDM phase, the batch
-        size and the buffer starts; every other input is a device value.
-        Counts `dl_graph_captures` per capture and `dl_graph_replays` per
-        replay (0 on an eager call).
+        """`_assemble` through the CUDA graph of its replay key
+        (`utils.cuda_graphs.GraphReplays`: eager on the key's first call,
+        captured as a `_SlotGraph` on its second, replayed after that).  The
+        key is what the eager program branches on, on the host: the OFDM
+        phase, the batch size and the buffer starts; every other input is a
+        device value.  Counts `dl_graph_captures` per capture and
+        `dl_graph_replays` per replay (0 on an eager call).
 
         The graphs of one program share one memory pool, so a replay may write
         over memory that holds another graph's static outputs.  That is safe
-        because the replays of one program are serial (the lock on the host;
-        on the device each copy-in waits for the previous copy-out, whatever
-        stream it runs on) and every call returns clones of the static
-        outputs, taken before the next replay can start."""
+        because every call returns clones of the static outputs, taken before
+        the next replay can start."""
         key = (slot_in_sf, stacked.batch, stacked.pdsch_k0p)
-        with self._graph_lock:
-            state = self._graphs.get(key)
-            if state is None:
-                self._graphs[key] = _WARM
-                if len(self._graphs) > GRAPH_KEYS:
-                    self._graphs.popitem(last=False)
-            else:
-                self._graphs.move_to_end(key)
-            if state is _WARM:
-                state = self._graphs[key] = self._capture(key, slot_in_sf, stacked)
-            if not isinstance(state, _SlotGraph):
-                tracing.count("dl_graph_replays", 0)
-                return self._assemble(slot_in_sf, *stacked)
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(self._graph_done)
-            out = state.run(stacked)
-            self._graph_done.record(stream)
-            tracing.count("dl_graph_replays", 1)
+        with self._replays.outputs(key, self._assemble_stacked, (slot_in_sf, stacked),
+                                   _SlotGraph) as out:
             return out
 
-    def _capture(self, key, slot_in_sf: int, stacked):
-        """The key's `_SlotGraph`, or `_EAGER` where the capture fails (said
-        once, in the PHY log)."""
-        try:
-            graph = _SlotGraph(self, slot_in_sf, stacked, self._graph_pool)
-        except RuntimeError as exc:
-            log.get_logger("PHY").warning(
-                "DL slot graph capture failed for replay key %s; the key runs eagerly: %s",
-                key, exc)
-            return _EAGER
-        tracing.count("dl_graph_captures", 1)
-        return graph
+    def _assemble_stacked(self, slot_in_sf: int, stacked):
+        return self._assemble(slot_in_sf, *stacked)
 
 
 @functools.lru_cache(maxsize=512)

@@ -111,11 +111,12 @@ class PuschUciProcessor:
         Returns the results per row, in batch order: `tb_crc_ok` (B,) bool,
         `csi2_metric` (B,) float32 and `csi2_bits` (a list: each row's bits,
         None where its part 2 is empty) on the host, `csi2_size` (the rows'
-        sizes), and `tb_bits_cb` and `harq_soft` (B, ...) on the device."""
+        sizes), and `tb_bits_cb`, `harq_soft` and `ldpc_iterations` (B, ...) on
+        the device."""
         sizes = self.csi2_sizes(csi1_bits)
         b = len(sizes)
         ok, csi2_metric = np.zeros(b, bool), np.zeros(b, np.float32)
-        csi2_bits, tb_bits_cb, harq_soft = [None] * b, [None] * b, [None] * b
+        csi2_bits, tb_bits_cb, harq_soft, iters = [None] * b, [None] * b, [None] * b, [None] * b
         for size in sorted(set(sizes)):
             idxs = [i for i, s in enumerate(sizes) if s == size]
             sel = torch.as_tensor(idxs, device=self.device)
@@ -128,11 +129,12 @@ class PuschUciProcessor:
                 csi2_metric[idxs] = fetch(out["csi2_metric"])
             for row, i in enumerate(idxs):
                 tb_bits_cb[i], harq_soft[i] = out["tb_bits_cb"][row], out["harq_soft"][row]
+                iters[i] = out["ldpc_iterations"][row]
                 if size:
                     csi2_bits[i] = bits[row]
         return dict(tb_crc_ok=ok, tb_bits_cb=torch.stack(tb_bits_cb),
-                    harq_soft=torch.stack(harq_soft), csi2_size=sizes, csi2_bits=csi2_bits,
-                    csi2_metric=csi2_metric)
+                    harq_soft=torch.stack(harq_soft), ldpc_iterations=torch.stack(iters),
+                    csi2_size=sizes, csi2_bits=csi2_bits, csi2_metric=csi2_metric)
 
     def process(self, grid_pair: torch.Tensor, harq_buffer: torch.Tensor | None = None,
                 ref_dmrs=None, dyn_signs=None, dyn_uci_fix=None, scr_bits=None) -> dict:

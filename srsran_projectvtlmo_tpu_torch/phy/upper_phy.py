@@ -20,6 +20,7 @@ serves every UE and slot.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from dataclasses import dataclass
 
@@ -27,9 +28,10 @@ import numpy as np
 import torch
 
 from ..fapi import validators as fapi_validators
+from ..fapi.indications import CrcIndication
 from ..fapi.pdus import (
-    CrcIndication, DlTtiRequest, RachIndication, RxDataIndication, SrsIndication,
-    TxDataRequest, UciIndication, UlTtiRequest)
+    DlTtiRequest, RachIndication, RxDataIndication, SrsIndication, TxDataRequest, UciIndication,
+    UlTtiRequest)
 from ..models.pusch_rx import (
     PuschRxConfig, cached_demux_plan, cached_pusch_rx_from_grid, dmrs_reference, flatten_tb_bits)
 from ..ops import ofdm as ofdm_mod
@@ -43,6 +45,7 @@ from ..utils import tables, tracing
 from ..utils.tables import resolve_device, upload
 from . import dl_slot
 from . import pucch as pucch_mod
+from . import ul_graph
 from .harq import RxBufferPool
 from .prach_buffer import PrachBuffer
 from .pusch_uci import PuschUciConfig, PuschUciProcessor
@@ -126,15 +129,39 @@ def pusch_rx_key(cfg: PuschRxConfig) -> PuschRxConfig:
         second_hop_prb=0 if cfg.hop_symbol is not None else None)
 
 
+#: Descrambling sequences kept, the least recently used dropped first: one
+#: per (UE scrambling, codeword size), on the host (1.4 MB each at the
+#: north-star width) and the signs on the device (0.7 MB each).
+SCRAMBLING_CACHE = 64
+
+
+@functools.lru_cache(maxsize=SCRAMBLING_CACHE)
+def _scrambling(c_init: int, nof_bits: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the Gold bits (G,) uint8, their descrambling signs (G,) int8), both
+    read-only: a UE's sequence depends on its rnti and n_id alone."""
+    scr = prg_mod.gold_sequence_bits(c_init, nof_bits)
+    signs = 1 - 2 * scr.astype(np.int8)
+    scr.flags.writeable = signs.flags.writeable = False
+    return scr, signs
+
+
+@functools.lru_cache(maxsize=SCRAMBLING_CACHE)
+def _device_signs(c_init: int, nof_bits: int, device: torch.device) -> torch.Tensor:
+    """A UE's descrambling signs (G,) int8 on `device`, uploaded on the
+    first call and shared after it: callers only read it."""
+    return upload(_scrambling(c_init, nof_bits)[1].copy(), device)
+
+
 def pusch_sequences(cfg: PuschRxConfig, plan=None):
     """The host inputs of the dynamic receiver for a PUSCH of cfg's values
     (rnti, n_id, absolute slot, second-hop PRB): (DM-RS reference pair
     (ndmrs, npil, 2) -- type 1/2, CRB-indexed, per-hop PRBs --, the
     descrambling bits (G,), their signs (G,) int8, and with a placement
     `plan` the UCI placeholder fix signs [ack, csi1, csi2], None for a field
-    without bits)."""
+    without bits).  The descrambling bits and signs are shared, read-only
+    arrays (`SCRAMBLING_CACHE`)."""
     ref = np_to_pair(dmrs_reference(cfg))
-    scr = prg_mod.gold_sequence_bits(cfg.scrambling_cinit(), cfg.nof_codeword_bits)
+    scr, signs = _scrambling(cfg.scrambling_cinit(), cfg.nof_codeword_bits)
     fixes = None
     if plan is not None:
         qm = bits_per_symbol(cfg.modulation)
@@ -142,7 +169,7 @@ def pusch_sequences(cfg: PuschRxConfig, plan=None):
                  for idx, nbits in ((plan.ack_bit_idx, cfg.nof_harq_ack_bits),
                                     (plan.csi1_bit_idx, cfg.nof_csi_part1_bits),
                                     (plan.csi2_bit_idx, cfg.nof_csi_part2_bits))]
-    return ref, scr, 1 - 2 * scr.astype(np.int8), fixes
+    return ref, scr, signs, fixes
 
 
 def _host(x) -> np.ndarray:
@@ -209,10 +236,22 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     all-zero row (the promotion sum is the identity on zeros), so one call
     serves any mix (reference: include/srsran/phy/upper/rx_buffer_pool.h:40-106).
 
-    Returns (per row its CrcIndication, RxDataIndication and, with UCI, its
-    UciIndication; the retransmissions decoded without their soft-combining
-    history because their pool was exhausted).  The TB bits come to the
-    host once, and only when some row passed its CRC.
+    On a card the receiver call is a CUDA graph of its replay key after the
+    key's first call (`phy.ul_graph`); the two-phase protocol syncs on the
+    host and stays eager.
+
+    Returns (per row its CrcIndication (`fapi.indications`: the verdict and
+    the row's SINR, timing advance and EVM), RxDataIndication and, with UCI,
+    its UciIndication; the retransmissions decoded without their
+    soft-combining history because their pool was exhausted).  The
+    verdicts, the channel state, the LDPC sweeps, the TB bits and the UCI
+    fields reach the host behind one wait (`utils.tables.fetch_many`).
+    Spans: `upper_phy.ul_values` (the per-row sequences, inside it
+    `upper_phy.pusch_sequences`, and their uploads), `pusch_rx.run` (the
+    host issuing the receiver), `upper_phy.ul_fetch` (verdicts, channel
+    state, TB bits and UCI to the host).  Counters: `pusch_cbs` and
+    `ldpc_sweeps` (the rows' codeblocks and the sum of their LDPC
+    iterations), `crc_channel_states` (1 per CrcIndication).
     """
     dev = grid.device
     p0 = pdus[0]
@@ -231,21 +270,22 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     rx_cfg = pusch_rx_key(valued[0])
     sub = extract_pusch_allocation(grid, p0)
 
-    # The per-row host sequences (the span covers their host computation,
-    # not the uploads): DM-RS references, descrambling signs and, with UCI
-    # on PUSCH, placeholder fix signs.
+    # The per-row values on the device: DM-RS references and, with UCI on
+    # PUSCH, placeholder fix signs uploaded; descrambling signs kept per UE.
     plan = None
     if nof_ack or nof_csi1:
         plan, _ = cached_demux_plan(rx_cfg, 0 if two_phase else const_csi2)
-    with tracing.span("upper_phy.pusch_sequences"):
-        seqs = [pusch_sequences(v, plan) for v in valued]  # (ref, scr, signs, fixes)
-    ref_in = upload(np.stack([s[0] for s in seqs]), dev)
-    signs_in = upload(np.stack([s[2] for s in seqs]), dev)
-    uci_fix = None
-    if plan is not None:
-        uci_fix = tuple(None if seqs[0][3][k] is None else
-                        upload(np.stack([s[3][k] for s in seqs]), dev, torch.int8)
-                        for k in range(3))
+    with tracing.span("upper_phy.ul_values"):
+        with tracing.span("upper_phy.pusch_sequences"):
+            seqs = [pusch_sequences(v, plan) for v in valued]  # (ref, scr, signs, fixes)
+        ref_in = upload(np.stack([s[0] for s in seqs]), dev)
+        signs_in = torch.stack([_device_signs(v.scrambling_cinit(), v.nof_codeword_bits, dev)
+                                for v in valued])
+        uci_fix = None
+        if plan is not None:
+            uci_fix = tuple(None if seqs[0][3][k] is None else
+                            upload(np.stack([s[3][k] for s in seqs]), dev, torch.int8)
+                            for k in range(3))
 
     seg = rx_cfg.segmentation
     ncb, nbits = seg.nof_cb, seg.nof_cw_bits_per_cb
@@ -264,32 +304,52 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
         zeros = torch.zeros((ncb, nbits), dtype=torch.int8, device=dev)
         harq_in = torch.stack([zeros if r is None else r for r in rows])
 
+    ack = ("harq_ack_bits", "harq_ack_metric") if nof_ack else ()
     csi1_bits = csi1_metric = csi2_bits = csi2_metric = None
     if two_phase:
         proc = PuschUciProcessor(PuschUciConfig(rx=rx_cfg, part2_size_map=p2map), dev)
-        res = proc.phase_a(sub, ref_in, signs_in, uci_fix)
+        with tracing.span("pusch_rx.run"):
+            res = proc.phase_a(sub, ref_in, signs_in, uci_fix)
         csi1_bits, csi1_metric = _host(res["csi1_bits"]), _host(res["csi1_metric"])
         out = proc.phase_b_by_size(res, csi1_bits, harq_in, [s[1] for s in seqs])
         csi2_bits, csi2_metric = out["csi2_bits"], out["csi2_metric"]
-        ok = out["tb_crc_ok"]
+        rows = ul_graph.row_summary(torch.as_tensor(out["tb_crc_ok"], device=dev), res,
+                                    out["ldpc_iterations"])
+        with tracing.span("upper_phy.ul_fetch"):
+            per_row, tb_cb, *values = tables.fetch_many(
+                [rows, out["tb_bits_cb"]] + [res[name] for name in ack])
+        _store_harq(harq_pools, buf_idxs, ncb, nbits, out["harq_soft"])
+        got = dict(zip(ack, values))
     else:
-        res = out = cached_pusch_rx_from_grid(rx_cfg, dev)(sub, harq_in, ref_in, signs_in,
-                                                           uci_fix)
-        ok = _host(out["tb_crc_ok"])
+        names = ack + (("csi1_bits", "csi1_metric") if nof_csi1 else ()) + \
+            (("csi2_bits", "csi2_metric") if const_csi2 else ())
+        fn = functools.partial(ul_graph.receive, cached_pusch_rx_from_grid(rx_cfg, dev))
+        key = (pusch_batch_key(p0), len(pdus), harq_in is not None)
+        with ul_graph.receiver_outputs(rx_cfg, key, fn,
+                                       (sub, harq_in, ref_in, signs_in, uci_fix)) as out:
+            with tracing.span("upper_phy.ul_fetch"):
+                per_row, tb_cb, *values = tables.fetch_many(
+                    [out["rows"], out["tb_bits_cb"]] + [out[name] for name in names])
+            _store_harq(harq_pools, buf_idxs, ncb, nbits, out["harq_soft"])
+        got = dict(zip(names, values))
         if nof_csi1:
-            csi1_bits, csi1_metric = _host(res["csi1_bits"]), _host(res["csi1_metric"])
+            csi1_bits, csi1_metric = got["csi1_bits"], got["csi1_metric"]
         if const_csi2:
-            csi2_bits, csi2_metric = _host(res["csi2_bits"]), _host(res["csi2_metric"])
-    tb_bits = flatten_tb_bits(_host(out["tb_bits_cb"]), rx_cfg.tbs) if ok.any() else None
+            csi2_bits, csi2_metric = got["csi2_bits"], got["csi2_metric"]
+    ok = per_row[:, 0] > 0.5
+    tb_bits = flatten_tb_bits(tb_cb, rx_cfg.tbs) if ok.any() else None
     if nof_ack:
-        ack_bits, ack_metric = _host(res["harq_ack_bits"]), _host(res["harq_ack_metric"])
+        ack_bits, ack_metric = got["harq_ack_bits"], got["harq_ack_metric"]
+    tracing.count("pusch_cbs", len(pdus) * ncb)
+    tracing.count("ldpc_sweeps", int(per_row[:, 4].sum()))
+    tracing.count("crc_channel_states", len(pdus))
 
     inds = []
     for k, (pool, pdu) in enumerate(zip(harq_pools, pdus)):
-        if buf_idxs[k] is not None:
-            pool.store(buf_idxs[k], ncb, nbits, out["harq_soft"][k])
+        _, sinr, ta_ns, evm, _ = (float(v) for v in per_row[k])
         row = [CrcIndication(slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id,
-                             tb_crc_ok=bool(ok[k])),
+                             tb_crc_ok=bool(ok[k]), ul_sinr_db=sinr, timing_advance_ns=ta_ns,
+                             evm=evm),
                RxDataIndication(slot=slot, rnti=pdu.rnti, harq_id=pdu.harq_id,
                                 tb_bits=tb_bits[k] if ok[k] else None)]
         if nof_ack or nof_csi1:
@@ -309,6 +369,13 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
             pool.release(pdu.rnti, pdu.harq_id)
         inds.append(row)
     return inds, dropped
+
+
+def _store_harq(harq_pools, buf_idxs, ncb: int, nbits: int, soft: torch.Tensor) -> None:
+    """Each row's soft bits (B, ncb, nbits) into its reserved HARQ buffer."""
+    for k, (pool, bi) in enumerate(zip(harq_pools, buf_idxs)):
+        if bi is not None:
+            pool.store(bi, ncb, nbits, soft[k])
 
 
 def dl_slot_on_device(program: dl_slot.DlSlotProgram, slot: int, requests, tx_datas):

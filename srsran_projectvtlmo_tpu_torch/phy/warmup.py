@@ -90,5 +90,6 @@ def _run_fapi_receiver(c, key, samples: torch.Tensor, dev: torch.device) -> None
     ref, _, signs, fixes = pusch_sequences(c, plan)
     uci_fix = None if fixes is None else tuple(
         None if f is None else upload(f, dev, torch.int8)[None] for f in fixes)
-    result = from_grid(sub, None, upload(ref, dev)[None], upload(signs, dev)[None], uci_fix)
+    result = from_grid(sub, None, upload(ref, dev)[None], upload(signs.copy(), dev)[None],
+                       uci_fix)
     result["tb_crc_ok"].cpu()  # waits for the device

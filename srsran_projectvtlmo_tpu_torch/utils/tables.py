@@ -1,7 +1,7 @@
 """Config-derived constant tables, built once on the host and kept on each
 device, the uploads of per-slot host values and the fetches of results.
-`upload`, `fetch` and `fetch_dl_outputs` count the bytes they move
-(`utils.tracing` counters `h2d_bytes`, `d2h_bytes`)."""
+`upload`, `fetch`, `fetch_many` and `fetch_dl_outputs` count the bytes they
+move (`utils.tracing` counters `h2d_bytes`, `d2h_bytes`)."""
 
 from __future__ import annotations
 
@@ -109,6 +109,24 @@ def fetch_dl_outputs(grid: torch.Tensor, samples: torch.Tensor,
         grid, samples = staged
     g = _host_copy(grid)
     return (g.view(np.complex64)[..., 0] if complex_grid else g), _host_copy(samples)
+
+
+def fetch_many(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Tensors' values on the host, numpy, as `fetch` gives them, behind one
+    wait: from the card each is copied without blocking into pinned staging
+    (torch's caching host allocator), the host waits once on an event
+    recorded after the copies and copies each out into a fresh array.
+    Counts `d2h_bytes` as `fetch` does."""
+    tracing.count("d2h_bytes", sum(t.numel() * t.element_size() for t in tensors))
+    if not tensors or tensors[0].device.type != "cuda":
+        return [(t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy() for t in tensors]
+    staged = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for dst, src in zip(staged, tensors):
+        dst.copy_(src, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(tensors[0].device))
+    done.synchronize()
+    return [_host_copy(t) for t in staged]
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:

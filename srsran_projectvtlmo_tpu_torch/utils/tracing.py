@@ -20,7 +20,13 @@ card adds 0 replays when it runs eagerly); `dl_pinned_fetches`
 (`utils.tables.fetch_dl_outputs`), DL fetches through pinned staging (0 on
 the CPU); `dl_encodes` and `dl_table_encodes` (`phy.pdcch`, `phy.pbch`), the
 PDCCH and PBCH codewords encoded, and of them those looked up in a table
-that was already built (an encode that first builds its table adds 0).
+that was already built (an encode that first builds its table adds 0);
+`ul_graph_captures` and `ul_graph_replays` (`phy.ul_graph`), the PUSCH
+receiver's CUDA graphs captured and replayed (an eager receiver call on a
+card adds 0 replays; the CPU counts neither); `pusch_cbs`, `ldpc_sweeps` and
+`crc_channel_states` (`phy.upper_phy.process_pusch_batch`), the PUSCH
+codeblocks decoded, the sum of their LDPC iterations, and the CRC
+indications that carry channel state.
 """
 
 from __future__ import annotations

@@ -250,11 +250,15 @@ def test_rx_symbol_handler_matches_jax(tmp_path):
 
 # --------------------------------------------------------------- entry --
 
-def test_entry_matches_jax():
-    """entry(device="cpu") against the JAX entry() on the same samples."""
+def test_entry_matches_jax(monkeypatch):
+    """entry(device="cpu") against the JAX entry() on the same samples, the
+    port's receiver with the JAX package's noise estimate."""
     sys.path.insert(0, REPO)
     import __graft_entry__ as jax_entry
 
+    own = entry.entry_config
+    monkeypatch.setattr(entry, "entry_config",
+                        lambda: dataclasses.replace(own(), unbiased_noise=False))
     fn, (samples,) = entry.entry(device="cpu")
     jfn, (jsamples,) = jax_entry.entry()
     np.testing.assert_array_equal(samples.numpy(), np.asarray(jsamples))

@@ -153,7 +153,7 @@ def test_counters_and_key_cap(card):
             captures += rec.get("dl_graph_captures", 0)
             replays += rec["dl_graph_replays"]
     assert (captures, replays) == (len(keys), 2 * len(keys))
-    assert len(program._graphs) == dl_slot.GRAPH_KEYS
+    assert len(program._replays.graphs) == dl_slot.GRAPH_KEYS
     slot, rv, b = keys[0]
     stacked = stacked_batch(program, slot, range(b), rv)
     counts = []

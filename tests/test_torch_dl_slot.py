@@ -402,7 +402,7 @@ def test_cpu_run_stacked_is_eager_and_never_captures():
         assert "dl_graph_replays" not in rec and "dl_graph_captures" not in rec
         want_grid, want_samples = program._assemble(slot % 2, *stacked)
         assert torch.equal(grid, want_grid) and torch.equal(samples, want_samples)
-    assert not program._graphs and program._graph_pool is None
+    assert program._replays is None
 
 
 def test_graph_copy_in_finds_the_uploads_flat_tensor():

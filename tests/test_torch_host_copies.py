@@ -48,6 +48,13 @@ def port_kw(kw: dict) -> dict:
     return {**kw, "modulation": port_mod(kw["modulation"])} if "modulation" in kw else kw
 
 
+def port_rx_kw(kw: dict) -> dict:
+    """`port_kw` of a PUSCH receiver's keywords with the JAX package's noise
+    estimate (`PuschRxConfig.unbiased_noise` False), so that the port's
+    receiver is held to the JAX one output for output."""
+    return {**port_kw(kw), "unbiased_noise": False}
+
+
 def test_ldpc_params_equal():
     for name in ("ALL_LIFTING_SIZES", "MAX_LIFTING_SIZE", "MAX_MESSAGE_SIZE",
                  "MAX_CODEBLOCK_SIZE", "FILLER_BIT"):

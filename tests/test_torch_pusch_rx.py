@@ -40,7 +40,7 @@ from srsran_projectvtlmo_tpu_torch.models.pusch_rx import (
 from srsran_projectvtlmo_tpu_torch.ops import ofdm
 from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode
 from srsran_projectvtlmo_tpu_torch.ops.ldpc.graphs import BaseGraph
-from tests.test_torch_host_copies import port_kw, port_mod
+from tests.test_torch_host_copies import port_mod, port_rx_kw
 
 REPO = Path(__file__).resolve().parent.parent
 CFO_HZ = 300.0
@@ -50,7 +50,7 @@ def _configs(**kw):
     base = dict(nof_rb=24, modulation=Modulation.QAM64, target_code_rate=0.6, nof_rx_ports=4,
                 dft_size=512, numerology=1)
     base.update(kw)
-    return JaxConfig(**base), PuschRxConfig(**port_kw(base))
+    return JaxConfig(**base), PuschRxConfig(**port_rx_kw(base))
 
 
 def _mix(layers: np.ndarray, nports: int) -> np.ndarray:

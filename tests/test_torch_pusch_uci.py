@@ -50,7 +50,7 @@ from srsran_projectvtlmo_tpu_torch.ran.modulation import bits_per_symbol
 from srsran_projectvtlmo_tpu_torch.ran.sch import sch_segmentation_info
 from srsran_projectvtlmo_tpu_torch.ran.ulsch_info import get_ulsch_information
 from srsran_projectvtlmo_tpu_torch.utils.cplx import np_to_pair
-from tests.test_torch_host_copies import port_kw
+from tests.test_torch_host_copies import port_rx_kw
 from tests.test_torch_pusch_rx import _compare, _mix
 
 T = torch.as_tensor
@@ -75,7 +75,7 @@ CASES = {
 
 def _configs(**kw):
     cfg = {**BASE, **kw}
-    return JaxConfig(**cfg), PuschRxConfig(**port_kw(cfg))
+    return JaxConfig(**cfg), PuschRxConfig(**port_rx_kw(cfg))
 
 
 def _payloads(cfg, batch, rng, csi2=None):
