@@ -13,7 +13,15 @@ project's notes cite them by (20 and 24, timing lines nothing read, are
 gone); any failure exits non-zero:
 
 1. environment: card name and power limit (nvidia-smi), torch/CUDA/nvcc;
-2. build the LDPC kernel (both modes) from csrc/ and time the build;
+2. build the LDPC kernel (both modes) and the PUSCH demap kernel from csrc/
+   (one nvcc process each) and time the build;
+2b. the PUSCH demap kernel (`ops/pusch_demap`) against its plain torch
+   version on the card, bit for bit, for every modulation in both layouts at
+   the 4-cell call's shape (4 rows x 78,624 positions), with noise of 0 and
+   below and values beyond the clip; then its time alone at that shape for
+   256QAM bit-major (CUDA events over replays of a captured graph, so no
+   host time), beside its bytes bound and the plain version's time, replayed
+   the same way and eager;
 3. the early-stop kernel against its plain torch version on the card, bit
    for bit (hard, soft, crc_ok, iterations), on noisy partly-converging
    codewords from the stored fixture at BG1 z=384 (76 x 4 codeblocks), BG1
@@ -29,7 +37,9 @@ gone); any failure exits non-zero:
    fixture's JAX-written Tx layer grids mixed by a fixed 4x2 matrix, AWGN
    from a seeded torch.Generator, OFDM-modulated by the port, decoded by
    `build_pusch_rx_slot`; every TB and CB must pass its CRC with the
-   fixture's TB bits, and the main path must have launched the kernel;
+   fixture's TB bits, and the main path must have launched the kernel, and
+   the demap kernel once (as must phases 14 and 21's eager receiver calls;
+   the kernel table's demap row gives phase 21's batched call's count);
 6. the port's transmitter (`build_ulsch_tx_slot`) on the fixture's TB bits
    at the north-star shape, its layer grids within 1e-3 of the fixture's
    (stored as float16 by the JAX transmitter);
@@ -151,7 +161,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "srsran_projectvtlmo_tpu_torch", "data", "northstar_fixture.npz")
-KERNEL_SOURCE = "srsran_projectvtlmo_tpu_torch/csrc/ldpc_decode.cu"
+KERNEL_SOURCES = {"ldpc_decode_es": "srsran_projectvtlmo_tpu_torch/csrc/ldpc_decode.cu",
+                  "ldpc_decode": "srsran_projectvtlmo_tpu_torch/csrc/ldpc_decode.cu",
+                  "pusch_demap": "srsran_projectvtlmo_tpu_torch/csrc/pusch_demap.cu"}
+#: The demap kernel ports no TPU kernel: the JAX package leaves the stage to XLA.
+DEMAP_REPLACES = "none: the PUSCH receiver's demap stage, about 270 torch kernels per call"
 ES_REPLACES = ("srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py:845 (#1), :770 (#2), "
                ":937 (#3)")
 FIXED_REPLACES = ("srsran_projectvtlmo_tpu/ops/ldpc/decode_pallas.py:1026 (#4), :1085 (#5); "
@@ -390,13 +404,21 @@ def slot_samples(layers, cfg, gen):
     return ofdm.ofdm_modulate(from_cplx(grid), cfg.dft_size, cfg.numerology, 0)
 
 
-def count_launches(fn, early_stop: bool, label: str):
+#: label -> the demap kernel's launches in that `count_launches` call, for
+#: the calls that check them.
+DEMAP_LAUNCHES: dict[str, int] = {}
+
+
+def count_launches(fn, early_stop: bool, label: str, demaps: int | None = None):
     """fn() with the kernel launch counts set to 0 just before and read just
     after: the call must launch the mode of the decoder it was configured
-    with and not the other one.  Returns (fn's result, that mode's count).
-    The UL receiver's CUDA graphs are dropped first, so that the first call
-    of each replay key in fn runs eagerly: `decode_cuda.LAUNCHES` counts the
-    launches of eager calls, a replay's kernels are not counted."""
+    with and not the other one, and with `demaps`, the receiver calls fn
+    makes, the PUSCH demap kernel once per receiver call (kept in
+    DEMAP_LAUNCHES).  Returns (fn's result, that mode's count).  The UL
+    receiver's CUDA graphs are dropped first, so that the first call of each
+    replay key in fn runs eagerly: the launch counts count the launches of
+    eager calls, a replay's kernels are not counted."""
+    from srsran_projectvtlmo_tpu_torch.ops import pusch_demap
     from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
     from srsran_projectvtlmo_tpu_torch.phy import ul_graph
 
@@ -404,11 +426,18 @@ def count_launches(fn, early_stop: bool, label: str):
                    else ("ldpc_decode", "ldpc_decode_es"))
     ul_graph._replays.cache_clear()
     decode_cuda.reset_launch_counts()
+    pusch_demap.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     launches = dict(decode_cuda.LAUNCHES)
     if launches[mode] == 0 or launches[other] != 0:
         raise SystemExit(f"{label}: the path must launch {mode} and not {other}: {launches}")
+    if demaps is not None:
+        n = pusch_demap.LAUNCHES["pusch_demap"]
+        if n != demaps:
+            raise SystemExit(f"{label}: the demap kernel launched {n} times for {demaps} "
+                             f"receiver calls")
+        DEMAP_LAUNCHES[label] = n
     return out, launches[mode]
 
 
@@ -421,7 +450,7 @@ def run_slice(cfg, samples, tb_bits, label):
     rx = build_pusch_rx_slot(cfg, "cuda")
     rx(samples)  # first call builds tables and warms up
     torch.cuda.synchronize()
-    out, count = count_launches(lambda: rx(samples), cfg.ldpc_early_stop, label)
+    out, count = count_launches(lambda: rx(samples), cfg.ldpc_early_stop, label, demaps=1)
 
     b = samples.shape[0]
     seg = cfg.segmentation
@@ -488,6 +517,84 @@ def phase_fixed_slice(layers, fx, gen):
     """The fixed-iteration slice on the port's own Tx grids."""
     cfg = northstar_cfg(6, early_stop=False)
     return run_slice(cfg, slot_samples(layers, cfg, gen), fx["tb_bits"], "fixed-iteration slice")
+
+
+#: The demap stage's shape in the 4-cell call: 4 rows of 12 data symbols x
+#: 3276 subcarriers x 2 layers.
+DEMAP_ROWS, DEMAP_N = 4, 12 * 3276 * 2
+
+
+def demap_inputs(mod, gen):
+    """(eq, noise, signs) on the card at the demap stage's shape: every
+    seventh symbol 40 times beyond the clip, noise of 0 and below on some
+    positions and on a stretch of the first row, signs of both values."""
+    from srsran_projectvtlmo_tpu_torch.ran.modulation import bits_per_symbol
+
+    eq = torch.randn((DEMAP_ROWS, DEMAP_N, 2), generator=gen, device="cuda") * 1.3
+    eq[:, ::7] *= 40.0
+    noise = torch.rand((DEMAP_ROWS, DEMAP_N), generator=gen, device="cuda") * 0.1
+    noise[:, ::11] = 0.0
+    noise[:, 5::13] = -0.01
+    noise[0, :1000] = 0.0
+    bits = torch.randint(0, 2, (DEMAP_ROWS, DEMAP_N * bits_per_symbol(mod)), generator=gen,
+                         device="cuda")
+    return eq, noise, (1 - 2 * bits).to(torch.int8)
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device ms per fn() call: `reps` calls captured in one CUDA graph and
+    replayed `replays` times between CUDA events, so no host time is in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def phase_demap(gen):
+    """Phase 2b.  Returns ((kernel ms, plain ms replayed in a graph, bound
+    ms, "bytes") of the timed case, the largest |LLR difference| over all
+    checks)."""
+    from srsran_projectvtlmo_tpu_torch.ops import pusch_demap as pd
+    from srsran_projectvtlmo_tpu_torch.ran.modulation import Modulation
+
+    max_err = 0
+    for mod in Modulation:
+        for bit_major in (True, False):
+            args = demap_inputs(mod, gen)
+            got = pd.demap_descramble_cuda(*args, mod, bit_major)
+            want = pd.demap_descramble_plain(*args, mod, bit_major)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            max_err = max(max_err, err)
+            print(f"demap {mod.name} {'bit-major' if bit_major else 'symbol-major'}: "
+                  f"{DEMAP_ROWS}x{DEMAP_N}, saturated {int((want.abs() == 120).sum())}, zero "
+                  f"{int((want == 0).sum())}, max |diff| {err}, "
+                  f"{'bit-exact' if err == 0 else 'MISMATCH'}")
+            if err:
+                raise SystemExit(f"demap kernel disagrees with the plain version: {mod.name}")
+    mod = Modulation.QAM256
+    args = demap_inputs(mod, gen)
+    ms = graph_ms(lambda: pd.demap_descramble_cuda(*args, mod, True))
+    plain_graph_ms = graph_ms(lambda: pd.demap_descramble_plain(*args, mod, True), reps=2)
+    plain_ms = cuda_time_ms(lambda: pd.demap_descramble_plain(*args, mod, True), reps=10)
+    nbytes = sum(a.numel() * a.element_size() for a in args) + DEMAP_ROWS * DEMAP_N * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    metric_line("pusch_demap_qam256_4cell", ms, f"ms per call (CUDA events over graph "
+                f"replays, {DEMAP_ROWS}x{DEMAP_N} positions, bit-major, descrambled)",
+                bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / ms,
+                plain_graph_ms=plain_graph_ms, plain_eager_ms=plain_ms, nbytes=nbytes)
+    return (ms, plain_graph_ms, bound_ms, "bytes"), max_err
 
 
 def metric_line(metric, value, unit, **extra):
@@ -1035,7 +1142,8 @@ def phase_fapi_northstar(gen, smi: str) -> dict:
     request = UlTtiRequest(slot=FAPI_SLOT, pusch=(pdu,))
     phy.process_ul_slot(request, samples)  # builds the receiver, moves its tables
     label = "FAPI north-star slot (process_ul_slot, 273 PRB QAM256 4x2)"
-    inds, launches = count_launches(lambda: phy.process_ul_slot(request, samples), True, label)
+    inds, launches = count_launches(lambda: phy.process_ul_slot(request, samples), True, label,
+                                    demaps=1)
     check_pusch(inds, tb, label + f", kernel launches {launches}")
     fapi_timing(phy, request, samples, None, "northstar", smi)
     return {"fapi_northstar": launches}
@@ -1520,6 +1628,8 @@ MC_CELLS = 4
 #: undecoded after combining at rv 2 (ROADMAP Queue C observes the same at
 #: 24 PRB, in JAX and the port).
 MC_RETX_RV = 3
+#: The label of phase 21's eager batched call, the benchmark's main path.
+MC_UL_LABEL = f"multi-cell UL, {MC_CELLS} north-star cells in one batched call"
 #: Sharded OFDM demodulation against the unsharded one (tests/test_parallel.py).
 SHARD_RTOL, SHARD_ATOL = 1e-4, 1e-5
 #: DL samples of the batched call against per-cell dispatch, relative RMS.
@@ -1586,14 +1696,15 @@ def phase_multi_cell_ul(gen) -> dict:
     reqs = [UlTtiRequest(slot=FAPI_SLOT, pusch=(p,)) for p in pdus]
     mc = MultiCellUpperPhy(cell, MC_CELLS, device="cuda")
     mc.process_ul_slot(reqs, samples)  # builds the receiver, moves its tables
-    label = f"multi-cell UL, {MC_CELLS} north-star cells in one batched call"
-    inds, launches = count_launches(lambda: mc.process_ul_slot(reqs, samples), True, label)
+    label = MC_UL_LABEL
+    inds, launches = count_launches(lambda: mc.process_ul_slot(reqs, samples), True, label,
+                                    demaps=1)
     check_cells(inds, tbs, label)
     one = UpperPhy(cell, device="cuda")
     ref, one_launches = [], 0
     for c in range(MC_CELLS):  # each call eager: its replay key is fresh
         inds_c, n = count_launches(lambda: one.process_ul_slot(reqs[c], samples[c]), True,
-                                   f"per-cell {c}")
+                                   f"per-cell {c}", demaps=1)
         ref.append(inds_c)
         one_launches += n
     equal = all(same_indications(inds[c], ref[c]) for c in range(MC_CELLS))
@@ -2149,20 +2260,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from srsran_projectvtlmo_tpu_torch.fixture import load_fixture
+    from srsran_projectvtlmo_tpu_torch.ops import pusch_demap
     from srsran_projectvtlmo_tpu_torch.ops.ldpc import decode_cuda
+    from srsran_projectvtlmo_tpu_torch.utils.nvcc import nvcc as nvcc_path
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    nvcc = subprocess.run([decode_cuda._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
     print(f"device: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
     lib = decode_cuda.build(verbose=True)
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {lib.name}, {pusch_demap.build().name} in {time.perf_counter() - t0:.2f} s")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    demap_times, demap_err = phase_demap(gen)
     fx = load_fixture(FIXTURE)
     es_err = phase_kernel_vs_plain(fx, gen)
     es_launches = phase_slice(fx, gen)
@@ -2194,8 +2308,13 @@ def main() -> int:
 
     rows = [("ldpc_decode_es", ES_REPLACES, es_launches, max(es_err, sweep_err)),
             ("ldpc_decode", FIXED_REPLACES, fx_launches, max(fx_err, sweep_err))]
+    # The demap row: the launches of the main path's eager 4-cell call,
+    # checked at one per receiver call like every call in DEMAP_LAUNCHES.
+    print(json.dumps({"pusch_demap_launches_per_call": DEMAP_LAUNCHES}))
+    times["pusch_demap"] = demap_times
+    rows.append(("pusch_demap", DEMAP_REPLACES, DEMAP_LAUNCHES[MC_UL_LABEL], demap_err))
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+        "name": name, "route": "cuda", "source": KERNEL_SOURCES[name], "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": times[name][0],
         "plain_ms": times[name][1], "bound_ms": times[name][2], "bound_by": times[name][3],
         "library_ms": None, "share_of_bound": times[name][2] / times[name][0]}

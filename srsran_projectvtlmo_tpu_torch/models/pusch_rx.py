@@ -14,8 +14,9 @@ signs as call inputs) and the CSI part-1 -> part-2 protocol
 (`decode_sch=False` is phase A; `build_pusch_phase_b` finishes a size
 bucket).  Without UCI the demapper runs bit-major, which is already the
 rate dematcher's order; with UCI it runs in row layout through the TS 38.212
-Section 6.2.7 placement plan.  The combinations the JAX program asserts
-against raise ValueError with its reason.
+Section 6.2.7 placement plan; demapping and descrambling are one stage,
+`ops.pusch_demap` (a hand-written kernel on the card).  The combinations the
+JAX program asserts against raise ValueError with its reason.
 reference: lib/phy/upper/channel_processors/pusch/pusch_processor_impl.cpp:115-298,
 pusch_decoder_impl.cpp:294-398.
 """
@@ -35,7 +36,6 @@ from ..ops import short_block
 from ..ops import uci as uci_mod
 from ..ops.channel_estimate import estimate_channel_hop, noise_residual_share
 from ..ops.crc import crc_check_device, crc_check_device_cbs
-from ..ops.demodulation import soft_demap
 from ..ops.dmrs import (
     dmrs_type1_sequence, dmrs_type2_sequence, dmrs_type2_subcarriers)
 from ..ops.equalization import apply_weights_ports_first, mmse_weights, zf_weights
@@ -43,6 +43,7 @@ from ..ops.evm import evm as evm_fn
 from ..ops.ldpc import rate_match as rm
 from ..ops.ldpc.decode_cuda import ldpc_decode, ldpc_decode_es
 from ..ops.ldpc.segment import tb_crc_name
+from ..ops.pusch_demap import demap_descramble_cuda, demap_route
 from ..ops.ulsch_demux import build_ulsch_demux_plan, placeholder_fix_signs
 from ..ran.modulation import bits_per_symbol
 from ..ran.ulsch_info import get_ulsch_information
@@ -352,11 +353,14 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
     epochs) are built once here and kept on `device`: the card unless the
     caller asks for the CPU.  With `dynamic_params` the rnti/n_id/slot-derived
     values are call inputs instead: `ref_dmrs` (B, ndmrs, npil, 2) float32,
-    `dyn_signs` (B, G) descrambling signs, and with UCI `dyn_uci_fix` = (ack,
-    csi1, csi2) placeholder fix signs, each (B, E_field) or None.
+    `dyn_signs` (B, G) int8 descrambling signs, and with UCI `dyn_uci_fix` =
+    (ack, csi1, csi2) placeholder fix signs, each (B, E_field) or None.
+    `fn.demap_kernel` says whether the demap stage bound here is the
+    hand-written kernel of `ops.pusch_demap` (on a card) or its plain version.
     """
     _check_scope(cfg)
     dev = resolve_device(device)
+    demap_fn = demap_route(dev)
     qm = bits_per_symbol(cfg.modulation)
     nlayers, nports = cfg.nof_layers, cfg.nof_rx_ports
     nre = cfg.nof_data_re
@@ -376,18 +380,14 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
     dmrs_syms = torch.as_tensor(np.asarray(cfg.dmrs_symbols, np.int64), device=dev)
     data_syms = torch.as_tensor(np.asarray(cfg.data_symbols, np.int64), device=dev)
     scr_bits = prg_mod.gold_sequence_bits(cfg.scrambling_cinit(), cfg.nof_codeword_bits)
-    descr = 1 - 2 * scr_bits.astype(np.int32)
+    signs = torch.as_tensor(1 - 2 * scr_bits.astype(np.int8), device=dev)  # (G,) row layout
     if has_uci:
-        signs = torch.as_tensor(descr, device=dev)  # (G,) row layout
         field_idx = {name: torch.as_tensor(plan.field_bit_idx(name), device=dev)
                      for name in ("ack", "csi1", "csi2")}
         punct_idx = torch.as_tensor(plan.punct_bit_idx, device=dev)
         sch_idx = torch.as_tensor(plan.sch_bit_idx, device=dev)
         static_fix = {name: _static_fix(plan, name, cfg, scr_bits, dev)
                       for name in ("ack", "csi1", "csi2")}
-    else:
-        signs = torch.as_tensor(np.ascontiguousarray(descr.reshape(nre * nlayers, qm).T),
-                                device=dev)  # (qm, nre*L) bit-major
     epochs = cfg.symbol_epochs_s()
     dmrs_epochs = tuple(epochs[cfg.start_symbol + int(s)] for s in cfg.dmrs_symbols)
     all_epochs = torch.as_tensor(np.asarray(
@@ -501,14 +501,14 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
                 "snr_db": 10.0 * torch.log10(torch.clamp(snr, min=1e-9)),
                 "ta_s": ta}
 
-    def demap_bit_major(eq, nv_flat, dyn_signs):
-        """Bit-major demap + descrambling -> (B, Qm, nre*L) int8, which is
-        already the rate dematcher's deinterleaved order (no UCI: the SCH
-        placement is the identity)."""
-        llr_bm = soft_demap(eq, nv_flat, cfg.modulation, bit_major=True)
-        sg = (signs if dyn_signs is None else
-              dyn_signs.reshape(eq.shape[0], nre * nlayers, qm).transpose(1, 2).to(torch.int32))
-        return torch.clamp(llr_bm.to(torch.int32) * sg, -127, 127).to(torch.int8)
+    def demap(eq, nv_flat, dyn_signs, bit_major):
+        """Demap + descrambling (`ops.pusch_demap`: the kernel on the card)
+        -> bit-major (B, Qm, N) int8, which is already the rate dematcher's
+        deinterleaved order (no UCI: the SCH placement is the identity), or
+        the row layout (B, G) the UCI placement indexes."""
+        return demap_fn(eq.contiguous(), nv_flat.contiguous(),
+                        signs if dyn_signs is None else dyn_signs.contiguous(),
+                        cfg.modulation, bit_major)
 
     def dematch_bit_major(llr_bm):
         """Per equal-E codeblock group: (B, C_g, N) circular-buffer LLRs."""
@@ -545,7 +545,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
                   "harq_ack_metric": torch.zeros((b,), dtype=torch.float32, device=dev)}
         if not has_uci:
             with tracing.span("pusch_rx.demap"):
-                llr_bm = demap_bit_major(eq, nv_flat, dyn_signs)
+                llr_bm = demap(eq, nv_flat, dyn_signs, bit_major=True)
             with tracing.span("pusch_rx.dematch"):
                 parts = dematch_bit_major(llr_bm)
             with tracing.span("pusch_rx.decode"):
@@ -555,9 +555,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
             return out
 
         with tracing.span("pusch_rx.demap"):
-            llr = soft_demap(eq, nv_flat, cfg.modulation)  # (B, G) int8
-            sg = signs if dyn_signs is None else dyn_signs.to(torch.int32)
-            llr = torch.clamp(llr.to(torch.int32) * sg, -127, 127).to(torch.int8)
+            llr = demap(eq, nv_flat, dyn_signs, bit_major=False)  # (B, G) int8
         fix = dict(static_fix)
         if dyn_uci_fix is not None:
             fix = {name: (f.to(torch.int32) if f is not None else None)
@@ -591,6 +589,7 @@ def build_pusch_rx_from_grid(cfg: PuschRxConfig, device="cuda"):
             out.update(metrics(eq, nvs, nv_flat, ta))
         return out
 
+    rx.demap_kernel = demap_fn is demap_descramble_cuda
     return rx
 
 

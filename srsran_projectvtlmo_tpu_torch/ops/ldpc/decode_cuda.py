@@ -12,25 +12,22 @@ decoder (`decode.ldpc_decode_es`, `decode.ldpc_decode`), a CUDA tensor
 launches the kernel or raises.
 
 The library is built with nvcc at first use, from the sources in the
-checkout, into `_build/` beside the package (listed in .gitignore), and
-loaded with ctypes; the kernel runs on torch's current stream.
+checkout, into `_build/` beside the package (listed in .gitignore,
+`utils.nvcc`), and loaded with ctypes; the kernel runs on torch's current
+stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ...ran.ldpc_params import BaseGraph
+from ...utils import nvcc
 from ...utils.tables import on_device
 from ..crc import POLYS
 from . import decode as plain
@@ -38,9 +35,6 @@ from .graphs import get_graph
 
 _PKG = Path(__file__).resolve().parents[2]
 SOURCE = _PKG / "csrc" / "ldpc_decode.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 #: Kernel launches since the last reset, counted where the kernel is launched.
 LAUNCHES = {"ldpc_decode_es": 0, "ldpc_decode": 0}
@@ -51,41 +45,9 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return path
-
-
-def library_path() -> Path:
-    """Build output, named by the source's content hash so an edit rebuilds."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libldpc_decode_{digest}.so"
-
-
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library unless an up-to-date build exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
+    return nvcc.build("ldpc_decode", SOURCE, verbose=verbose)
 
 
 @functools.lru_cache(maxsize=1)

@@ -68,6 +68,11 @@ class PuschUciProcessor:
         self._cfg_b = _phase_b_cfg(rx)
         self._rx_a = cached_pusch_rx_from_grid(_phase_a_cfg(rx), self.device)
 
+    @property
+    def demap_kernel(self) -> bool:
+        """Phase A's demap stage, the only one, is the hand-written kernel."""
+        return self._rx_a.demap_kernel
+
     def csi2_sizes(self, csi1_bits: np.ndarray) -> list[int]:
         """Host decision point: CSI part-2 sizes from decoded part-1 rows."""
         k = self.cfg.rx.nof_csi_part1_bits

@@ -251,7 +251,10 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     host issuing the receiver), `upper_phy.ul_fetch` (verdicts, channel
     state, TB bits and UCI to the host).  Counters: `pusch_cbs` and
     `ldpc_sweeps` (the rows' codeblocks and the sum of their LDPC
-    iterations), `crc_channel_states` (1 per CrcIndication).
+    iterations), `crc_channel_states` (1 per CrcIndication),
+    `ul_demap_rows` (the rows, each through one demap stage) and
+    `ul_demap_kernel_rows` (those whose receiver bound the kernel of
+    `ops.pusch_demap` as its demap stage when it was built).
     """
     dev = grid.device
     p0 = pdus[0]
@@ -308,6 +311,7 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     csi1_bits = csi1_metric = csi2_bits = csi2_metric = None
     if two_phase:
         proc = PuschUciProcessor(PuschUciConfig(rx=rx_cfg, part2_size_map=p2map), dev)
+        demap_kernel = proc.demap_kernel
         with tracing.span("pusch_rx.run"):
             res = proc.phase_a(sub, ref_in, signs_in, uci_fix)
         csi1_bits, csi1_metric = _host(res["csi1_bits"]), _host(res["csi1_metric"])
@@ -323,7 +327,9 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     else:
         names = ack + (("csi1_bits", "csi1_metric") if nof_csi1 else ()) + \
             (("csi2_bits", "csi2_metric") if const_csi2 else ())
-        fn = functools.partial(ul_graph.receive, cached_pusch_rx_from_grid(rx_cfg, dev))
+        rx = cached_pusch_rx_from_grid(rx_cfg, dev)
+        demap_kernel = rx.demap_kernel
+        fn = functools.partial(ul_graph.receive, rx)
         key = (pusch_batch_key(p0), len(pdus), harq_in is not None)
         with ul_graph.receiver_outputs(rx_cfg, key, fn,
                                        (sub, harq_in, ref_in, signs_in, uci_fix)) as out:
@@ -343,6 +349,8 @@ def process_pusch_batch(cell: CellConfig, expert: ExpertPhyConfig, slot: int, pd
     tracing.count("pusch_cbs", len(pdus) * ncb)
     tracing.count("ldpc_sweeps", int(per_row[:, 4].sum()))
     tracing.count("crc_channel_states", len(pdus))
+    tracing.count("ul_demap_rows", len(pdus))
+    tracing.count("ul_demap_kernel_rows", len(pdus) if demap_kernel else 0)
 
     inds = []
     for k, (pool, pdu) in enumerate(zip(harq_pools, pdus)):

@@ -26,7 +26,10 @@ receiver's CUDA graphs captured and replayed (an eager receiver call on a
 card adds 0 replays; the CPU counts neither); `pusch_cbs`, `ldpc_sweeps` and
 `crc_channel_states` (`phy.upper_phy.process_pusch_batch`), the PUSCH
 codeblocks decoded, the sum of their LDPC iterations, and the CRC
-indications that carry channel state.
+indications that carry channel state; `ul_demap_rows` and
+`ul_demap_kernel_rows` (the same function), the PUSCH rows demapped, and
+of them those whose receiver's demap stage is the hand-written kernel
+(`ops.pusch_demap`; 0 on the CPU).
 """
 
 from __future__ import annotations

@@ -26,6 +26,7 @@ Tolerances and why:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -276,7 +277,12 @@ def test_distinct_rntis_decode_in_one_receiver_call(inputs, world1, monkeypatch)
 
     def counting(cfg, device):
         rx = cached(cfg, device)
-        return lambda grid, *args: rows.append(grid.shape[0]) or rx(grid, *args)
+
+        @functools.wraps(rx)  # keeps the receiver's attributes
+        def counted(grid, *args):
+            rows.append(grid.shape[0])
+            return rx(grid, *args)
+        return counted
 
     monkeypatch.setattr(up, "cached_pusch_rx_from_grid", counting)
     MultiCellUpperPhy(UL_CELL, len(reqs), device="cpu").process_ul_slot(reqs, samples)

@@ -1,8 +1,9 @@
 """PyTorch port, the batched PUSCH receiver's CUDA graphs on the card: replays
 equal the eager receiver bit for bit (TB bits, verdicts, HARQ soft bits,
 channel state), for new data and for a retransmission that combines;
-captures happen on a replay key's second call only; the FAPI entry's
-counters and indications across eager, captured and replayed calls.
+captures happen on a replay key's second call only; the receiver with the
+demap kernel equals it with the plain demap; the FAPI entry's counters and
+indications across eager, captured and replayed calls.
 
 Every test needs an NVIDIA card and skips without one.  This file imports no
 JAX, so it runs where the card is, without the JAX conftest:
@@ -13,6 +14,7 @@ The slots come from the benchmark's UE side (`portbench.reference.ul`): four
 100 MHz 4x2 cells, a 2-layer QAM256 PUSCH on 273 PRB in each.
 """
 
+import dataclasses
 import functools
 import json
 from pathlib import Path
@@ -26,7 +28,10 @@ from portbench.reference.fapi import pdus as ref_pdus
 from portbench.traffic.ul_pusch import channel, pusch_pdu
 from srsran_projectvtlmo_tpu_torch.fapi import pdus
 from srsran_projectvtlmo_tpu_torch.fapi.indications import CrcIndication
-from srsran_projectvtlmo_tpu_torch.models.pusch_rx import cached_pusch_rx_from_grid
+from srsran_projectvtlmo_tpu_torch.models import pusch_rx
+from srsran_projectvtlmo_tpu_torch.models.pusch_rx import (
+    cached_demux_plan, cached_pusch_rx_from_grid)
+from srsran_projectvtlmo_tpu_torch.ops import pusch_demap
 from srsran_projectvtlmo_tpu_torch.parallel.multi_cell_phy import MultiCellUpperPhy
 from srsran_projectvtlmo_tpu_torch.phy import ul_graph
 from srsran_projectvtlmo_tpu_torch.ops.ofdm import ofdm_demodulate
@@ -72,22 +77,30 @@ def ul_slot(slot: int, seed: int, noise: float = 0.005, rv: int = 0):
     return reqs, np.stack(samples), tbs
 
 
-def receiver_args(card, reqs, samples, harq_in=None):
+def receiver_args(card, reqs, samples, harq_in=None, nof_csi2=0):
     """(rx_cfg, the receiver call, its replay key, its inputs) as
-    `process_pusch_batch` makes them."""
+    `process_pusch_batch` makes them, with the UCI fix signs where the PDUs
+    carry UCI (`nof_csi2`: their constant CSI part-2 size)."""
     slot = reqs[0].slot
     grid = ofdm_demodulate(torch.as_tensor(samples, device=card), PHY_CELL.nof_subc,
                            PHY_CELL.dft_size, PHY_CELL.numerology, slot % 2)
-    valued = [pusch_config(PHY_CELL, ExpertPhyConfig(), slot, r.pusch[0], nof_csi2=0,
+    valued = [pusch_config(PHY_CELL, ExpertPhyConfig(), slot, r.pusch[0], nof_csi2=nof_csi2,
                            two_phase=False) for r in reqs]
     rx_cfg = pusch_rx_key(valued[0])
-    seqs = [pusch_sequences(v) for v in valued]
+    p0 = reqs[0].pusch[0]
+    plan = None
+    if p0.nof_harq_ack_bits or p0.nof_csi_part1_bits:
+        plan, _ = cached_demux_plan(rx_cfg, nof_csi2)
+    seqs = [pusch_sequences(v, plan) for v in valued]
     ref = torch.as_tensor(np.stack([s[0] for s in seqs]), device=card)
     signs = torch.as_tensor(np.stack([s[2] for s in seqs]), device=card)
-    p0 = reqs[0].pusch[0]
+    uci_fix = None if plan is None else tuple(
+        None if seqs[0][3][k] is None else
+        torch.as_tensor(np.stack([s[3][k] for s in seqs]), dtype=torch.int8, device=card)
+        for k in range(3))
     fn = functools.partial(ul_graph.receive, cached_pusch_rx_from_grid(rx_cfg, card))
     key = (pusch_batch_key(p0), len(reqs), harq_in is not None)
-    return rx_cfg, fn, key, (extract_pusch_allocation(grid, p0), harq_in, ref, signs, None)
+    return rx_cfg, fn, key, (extract_pusch_allocation(grid, p0), harq_in, ref, signs, uci_fix)
 
 
 OUTPUTS = ("tb_crc_ok", "tb_bits_cb", "harq_soft", "ldpc_iterations", "snr_db", "ta_s", "evm",
@@ -129,6 +142,55 @@ def test_new_data_replay_equals_eager(card):
     assert all(np.array_equal(b, tb) for b, tb in zip(bits, tbs))
 
 
+def kernel_and_plain(card, monkeypatch, rx_cfg, fn, args):
+    """The outputs of the cached receiver `fn`, whose demap stage is the
+    kernel, launched once, and of a receiver of `rx_cfg` built with the
+    plain demap, on `args`."""
+    assert fn.args[0].demap_kernel
+    with torch.no_grad():
+        pusch_demap.reset_launch_counts()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        assert pusch_demap.LAUNCHES["pusch_demap"] == 1
+        monkeypatch.setattr(pusch_rx, "demap_route",
+                            lambda dev: pusch_demap.demap_descramble_plain)
+        plain = pusch_rx.build_pusch_rx_from_grid(rx_cfg, card)
+        assert not plain.demap_kernel
+        want = ul_graph.receive(plain, *args)
+        torch.cuda.synchronize()
+        assert pusch_demap.LAUNCHES["pusch_demap"] == 1
+    return got, want
+
+
+def test_demap_kernel_receiver_equals_plain_demap(card, monkeypatch):
+    """At the cell's shape the receiver, whose demap stage is the kernel
+    (bit-major), gives every output of the same receiver with the plain
+    demap bit for bit, in one launch of the kernel per call."""
+    reqs, samples, _ = ul_slot(4, 1)
+    rx_cfg, fn, _, args = receiver_args(card, reqs, samples)
+    got, want = kernel_and_plain(card, monkeypatch, rx_cfg, fn, args)
+    assert_equal(got, want)
+    assert bool(want["tb_crc_ok"].all())
+
+
+def test_demap_kernel_uci_receiver_equals_plain_demap(card, monkeypatch):
+    """The same at the cell's shape with HARQ-ACK and CSI parts 1 and 2 on
+    the PUSCH, where the demap stage runs symbol-major: every output,
+    the UCI fields' bits and metrics too, bit for bit.  (The UE side sends
+    no UCI, so the TBs need not decode.)"""
+    reqs, samples, _ = ul_slot(4, 1)
+    reqs = [pdus.UlTtiRequest(slot=r.slot, pusch=(dataclasses.replace(
+        r.pusch[0], nof_harq_ack_bits=2, nof_csi_part1_bits=5, part2_size_map=(6,) * 32),))
+        for r in reqs]
+    rx_cfg, fn, _, args = receiver_args(card, reqs, samples, nof_csi2=6)
+    assert args[4] is not None and all(f is not None for f in args[4])
+    got, want = kernel_and_plain(card, monkeypatch, rx_cfg, fn, args)
+    assert_equal(got, want)
+    for k in ("harq_ack_bits", "harq_ack_metric", "csi1_bits", "csi1_metric", "csi2_bits",
+              "csi2_metric"):
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_retransmission_replay_combines_as_eager(card):
     """A first transmission that fails on every row (noise 0.04 per
     component, about 22 dB per rx port), then its rv 2 retransmission with
@@ -168,6 +230,7 @@ def test_fapi_entry_counts_and_repeats(card):
     assert [rec["ul_graph_replays"] for _, rec in seen] == [0, 1, 1]
     for _, rec in seen:
         assert rec["crc_channel_states"] == NCELL and rec["pusch_cbs"] == NCELL * 76
+        assert rec["ul_demap_rows"] == NCELL and rec["ul_demap_kernel_rows"] == NCELL
         assert NCELL * 76 <= rec["ldpc_sweeps"] <= NCELL * 76 * 6
     first = seen[0][0]
     for out, _ in seen[1:]:
